@@ -1,0 +1,132 @@
+"""Implicit-GEMM quantized conv: the level conv without an im2col tensor.
+
+Port of ``repro/kernels/conv_implicit.py`` (``conv_implicit_pallas``).  The
+CUDA kernel is ``csrc/conv_implicit.cu``; its source note says what bounds
+it on an H100 and how it stages the halo'd row span of each block in
+shared memory.  :func:`conv_implicit` is the wrapper: a CPU tensor takes
+:func:`conv_implicit_plain`, a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.and_accum import (dequant_epilogue, epilogue_scales,
+                                        int32_exact, level_gemm_exact)
+from repro_torch.core.conv_lowering import _out_hw, im2col_sliced, pad_split
+from . import _lib
+
+NAME = "conv_implicit"
+
+# block tile of csrc/conv_implicit.cu: TM output pixels x TN channels, the
+# weight slab streamed in KC-channel chunks with a KC + 4 byte pitch
+TM, TN, KC = 64, 64, 128
+# shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def smem_layout(h: int, w: int, cin: int, kh: int, kw: int, stride: int,
+                padding: str) -> tuple[int, int, int]:
+    """``(cpitch, xs_bytes, smem_bytes)`` of one block: the channel pitch
+    of a staged pixel (Cin rounded up to a word, then to an odd number of
+    words), the staged row span in bytes, and the block's whole dynamic
+    shared memory.  The plan's feasibility bound (``api/targets.py``)
+    calls this same function."""
+    oh, ow = _out_hw(h, w, kh, kw, stride, padding)
+    rows_out = min(oh, 1 + (ow - 1 + TM - 1) // ow)
+    span_rows = (rows_out - 1) * stride + kh
+    span_cols = (ow - 1) * stride + kw
+    cpitch = -(-cin // 4) * 4
+    if (cpitch // 4) % 2 == 0:
+        cpitch += 4
+    xs_bytes = -(-(span_rows * span_cols * cpitch) // 16) * 16
+    return cpitch, xs_bytes, xs_bytes + TN * (KC + 4) + TM * 4
+
+
+def conv_implicit_plain(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
+                        kh: int, kw: int, stride: int = 1,
+                        padding: str = "SAME", a_bits: int,
+                        w_bits: int) -> torch.Tensor:
+    """Plain PyTorch version: im2col patches of the levels, exact (float64)
+    accumulator and rowsum, the shared f32 epilogue; NHWC f32 out."""
+    b, h, w, cin = x_lv.shape
+    oh, ow = _out_hw(h, w, kh, kw, stride, padding)
+    patches = im2col_sliced(x_lv, kh, kw, stride, padding)
+    patches = patches.reshape(-1, kh * kw * cin)
+    acc = level_gemm_exact(patches, w_lv)
+    rowsum = patches.to(torch.float64).sum(dim=1)
+    s, t = epilogue_scales(a_bits, s_w, z_w)
+    return dequant_epilogue(acc, rowsum, s, t).reshape(b, oh, ow, -1)
+
+
+def _check(x_lv, w_lv, kh, kw, stride, padding, a_bits, w_bits) -> None:
+    if x_lv.ndim != 4 or w_lv.ndim != 2:
+        raise ValueError(f"conv_implicit: needs x (B,H,W,Cin) and w "
+                         f"(kh*kw*Cin, Cout), got {tuple(x_lv.shape)}, "
+                         f"{tuple(w_lv.shape)}")
+    k = kh * kw * x_lv.shape[3]
+    if w_lv.shape[0] != k:
+        raise ValueError(f"conv_implicit: w has {w_lv.shape[0]} rows, "
+                         f"kh*kw*Cin = {k}")
+    if x_lv.dtype != torch.uint8 or w_lv.dtype != torch.uint8:
+        raise TypeError(f"conv_implicit: needs uint8 levels, got "
+                        f"{x_lv.dtype} and {w_lv.dtype}")
+    if x_lv.device != w_lv.device:
+        raise ValueError(f"conv_implicit: x on {x_lv.device}, w on "
+                         f"{w_lv.device}")
+    if not (x_lv.is_contiguous() and w_lv.is_contiguous()):
+        raise ValueError("conv_implicit: operands must be contiguous")
+    if padding not in ("SAME", "VALID") or stride < 1:
+        raise ValueError(f"conv_implicit: stride {stride} / padding "
+                         f"{padding!r} unsupported")
+    if not (1 <= a_bits <= 8 and 1 <= w_bits <= 8):
+        raise ValueError(f"conv_implicit: bit widths must be 1..8, got "
+                         f"a={a_bits} w={w_bits}")
+    if not int32_exact(k, a_bits, w_bits):
+        raise ValueError(f"conv_implicit: int32 accumulator may overflow "
+                         f"at K={k}, a_bits={a_bits}, w_bits={w_bits}")
+
+
+def _launcher():
+    fn = _lib.library(NAME).conv_implicit_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p] + [i] * 15 + [f, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
+                  kh: int, kw: int, stride: int = 1, padding: str = "SAME",
+                  a_bits: int, w_bits: int) -> torch.Tensor:
+    """(B,H,W,Cin) uint8 levels (*) (kh*kw*Cin, Cout) uint8 weight levels
+    -> (B,OH,OW,Cout) float32 ``s*acc - t*rowsum``."""
+    _check(x_lv, w_lv, kh, kw, stride, padding, a_bits, w_bits)
+    if x_lv.device.type == "cpu":
+        return conv_implicit_plain(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw,
+                                   stride=stride, padding=padding,
+                                   a_bits=a_bits, w_bits=w_bits)
+    if x_lv.device.type != "cuda":
+        raise ValueError(f"conv_implicit: unsupported device {x_lv.device}")
+    b, h, w, cin = x_lv.shape
+    cout = w_lv.shape[1]
+    oh, ow = _out_hw(h, w, kh, kw, stride, padding)
+    (pt, _), (pl, _) = pad_split(h, w, kh, kw, stride, padding)
+    cpitch, xs_bytes, smem = smem_layout(h, w, cin, kh, kw, stride, padding)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conv_implicit: a block needs {smem} B of shared "
+                         f"memory (> {SMEM_LIMIT})")
+    out = torch.empty((b, oh, ow, cout), dtype=torch.float32,
+                      device=x_lv.device)
+    if out.numel() == 0:
+        return out
+    s, t = epilogue_scales(a_bits, s_w, z_w)
+    with torch.cuda.device(x_lv.device):
+        stream = torch.cuda.current_stream(x_lv.device).cuda_stream
+        err = _launcher()(x_lv.data_ptr(), w_lv.data_ptr(), out.data_ptr(),
+                          b, h, w, cin, cout, kh, kw, stride, oh, ow, pt, pl,
+                          cpitch, xs_bytes, smem, float(s), float(t), stream)
+    _lib.check_launch(NAME, err)
+    _lib.LAUNCHES[NAME] += 1
+    return out

@@ -1,0 +1,140 @@
+"""The paper's CNN models (port of the serve half of ``repro/models/cnn.py``).
+
+* ``svhn_cnn`` — 6 conv + 2 average-pool + 2 FC layers (FCs as 1x1
+  convolutions), for 40x40 SVHN digits; first and last layers stay full
+  precision.
+* ``alexnet`` — binary-weight AlexNet for the ImageNet rows.
+
+Serve mode walks a compiled plan (:mod:`repro_torch.core.plan`); this
+module holds the specs, the seeded initializer and the per-layer serve
+pieces the plan executor applies between convolutions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantConfig, quantize_activation
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    cin: int
+    cout: int
+    k: int = 3
+    stride: int = 1
+    pool: bool = False   # 2x2 average pool after this layer
+    role: str = "mid"    # first | mid | last
+    fc: bool = False     # fully-connected: VALID conv reducing to 1x1
+
+
+def svhn_cnn_spec(channels: int = 64) -> list[ConvSpec]:
+    """6 conv + 2 pool + 2 FC(=1x1 conv) — the paper's SVHN model."""
+    c = channels
+    return [
+        ConvSpec(3, c, 5, role="first"),
+        ConvSpec(c, c, 3),
+        ConvSpec(c, 2 * c, 3, pool=True),
+        ConvSpec(2 * c, 2 * c, 3),
+        ConvSpec(2 * c, 4 * c, 3, pool=True),
+        ConvSpec(4 * c, 4 * c, 3),
+        ConvSpec(4 * c, 8 * c, 1),
+        ConvSpec(8 * c, 10, 1, role="last"),
+    ]
+
+
+def alexnet_spec() -> list[ConvSpec]:
+    """AlexNet conv/FC stack (FCs as convs) for the ImageNet rows."""
+    return [
+        ConvSpec(3, 96, 11, stride=4, pool=True, role="first"),
+        ConvSpec(96, 256, 5, pool=True),
+        ConvSpec(256, 384, 3),
+        ConvSpec(384, 384, 3),
+        ConvSpec(384, 256, 3, pool=True),
+        ConvSpec(256, 4096, 6, fc=True),
+        ConvSpec(4096, 4096, 1, fc=True),
+        ConvSpec(4096, 1000, 1, fc=True, role="last"),
+    ]
+
+
+def init_cnn(generator: torch.Generator, spec: Sequence[ConvSpec],
+             dtype=torch.float32) -> list[dict]:
+    """Random float params on ``generator``'s device: HWIO ``w`` drawn
+    N(0, 1/fan_in), zero bias, unit norm scale, zero norm shift.  (The
+    reference draws from a JAX PRNG; tests carry its params across with
+    :mod:`repro_torch.convert` instead of re-drawing.)"""
+    dev = generator.device
+    params = []
+    for s in spec:
+        fan_in = s.k * s.k * s.cin
+        w = torch.randn((s.k, s.k, s.cin, s.cout), generator=generator,
+                        dtype=dtype, device=dev) / math.sqrt(fan_in)
+        params.append(dict(
+            w=w, b=torch.zeros(s.cout, dtype=dtype, device=dev),
+            g=torch.ones(s.cout, dtype=dtype, device=dev),
+            beta=torch.zeros(s.cout, dtype=dtype, device=dev)))
+    return params
+
+
+def _norm_act(x: torch.Tensor, g, beta, quant: QuantConfig, role: str,
+              mode: str = "serve") -> torch.Tensor:
+    """Per-channel norm + bounded activation, serve form: PER-SAMPLE
+    (spatial-only) statistics, so a request's output never depends on its
+    batchmates.  ``jnp.var`` is the population variance (correction=0)."""
+    if mode != "serve":
+        raise ValueError("the port implements the serve forward only")
+    mu = torch.mean(x, dim=(1, 2), keepdim=True)
+    var = torch.var(x, dim=(1, 2), keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + 1e-5) * g + beta
+    x = torch.clamp(x, 0.0, 1.0)
+    if role == "last" or quant.engine == "fp":
+        return x
+    return quantize_activation(x, quant.a_bits)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 VALID average pool on NHWC: the window sum, then / 4
+    (the reference's ``reduce_window`` add / 4.0)."""
+    h, w = (x.shape[1] // 2) * 2, (x.shape[2] // 2) * 2
+    x = x[:, :h, :w]
+    s = (x[:, 0::2, 0::2] + x[:, 0::2, 1::2]) + x[:, 1::2, 0::2]
+    return (s + x[:, 1::2, 1::2]) / 4.0
+
+
+def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) float32 weights of ``jax.image.resize(..., "linear")``
+    along one axis: a triangle kernel, widened by in/out when downsampling
+    (antialiasing), columns normalized — the same float32 arithmetic as
+    ``jax.image.scale.compute_weight_mat`` with zero translation."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None])
+    weights = np.maximum(f32(0), f32(1) - x / kernel_scale)
+    total = weights.sum(axis=0, keepdims=True, dtype=f32)
+    eps = f32(1000.0 * np.finfo(np.float32).eps)
+    weights = np.where(np.abs(total) > eps,
+                       weights / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_size: int, out_size: int,
+                    device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
+
+
+def resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """NHWC spatial resize to (size, size), antialiased linear, as an
+    explicit interpolation matrix per axis (built once per size and
+    device)."""
+    mh = _resize_weights(x.shape[1], size, x.device)
+    mw = _resize_weights(x.shape[2], size, x.device)
+    return torch.einsum("bhwc,hi,wj->bijc", x, mh, mw)
