@@ -52,6 +52,8 @@ class LayerGeometry:
 IMPLICIT_STRIDES = (1, 2)
 IMPLICIT_AMP_MIN = 4.0
 IMPLICIT_PADDINGS = ("SAME", "VALID")
+# the TPU routing's depth threshold, kept until H100 rows exist
+IMPLICIT_KDIM_MIN = 512
 
 
 def _implicit_eligible(conv) -> bool:
@@ -71,27 +73,19 @@ class ComputeTarget:
 
     name: str = "cuda"
     kind: str = dataclasses.field(default="compute", init=False)
-    table: tuple = (
-        # the TPU routing's depth threshold, kept until H100 rows exist
-        ("implicit_kdim_min", 512),
-        # shared memory one block may use on an H100 (227 KB)
-        ("implicit_smem_bytes", 232448),
-    )
-
-    def __getitem__(self, const: str) -> float:
-        return dict(self.table)[const]
 
     def implicit_smem(self, conv, k: int) -> tuple[int, int]:
-        """(bytes one implicit-kernel block needs, the budget)."""
-        from repro_torch.kernels.conv_implicit import smem_layout
+        """(bytes one implicit-kernel block needs, the budget): the kernel
+        wrapper's own layout and limit."""
+        from repro_torch.kernels.conv_implicit import SMEM_LIMIT, smem_layout
 
         cin = k // max(conv.kh * conv.kw, 1)
         need = smem_layout(conv.h, conv.w, cin, conv.kh, conv.kw,
                            conv.stride, conv.padding)[2]
-        return need, int(self["implicit_smem_bytes"])
+        return need, SMEM_LIMIT
 
     def select_engine(self, m, k, n, a_bits, w_bits, conv=None) -> str:
-        if _implicit_eligible(conv) and k >= self["implicit_kdim_min"]:
+        if _implicit_eligible(conv) and k >= IMPLICIT_KDIM_MIN:
             need, budget = self.implicit_smem(conv, k)
             if need <= budget:
                 return "implicit"

@@ -82,8 +82,8 @@ def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
                             f"{quant.engine!r} is infeasible on {target!r}: "
                             f"{reason}")
         return quant.engine, "override"
-    return (ops.cost_model_engine(m, k, n, quant.a_bits, quant.w_bits,
-                                  target, conv), "heuristic")
+    return (ops.select_engine(m, k, n, quant.a_bits, quant.w_bits, target,
+                              conv), "heuristic")
 
 
 def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target):

@@ -57,15 +57,9 @@ class ConvShape:
 
 def select_engine(m: int, k: int, n: int, a_bits: int, w_bits: int,
                   target: str = "cuda", conv: ConvShape | None = None) -> str:
-    """Engine for an unpinned call: the target's cost model (plans pin
-    their engines at compile time and never come here)."""
-    return cost_model_engine(m, k, n, a_bits, w_bits, target, conv)
-
-
-def cost_model_engine(m: int, k: int, n: int, a_bits: int, w_bits: int,
-                      target: str = "cuda",
-                      conv: ConvShape | None = None) -> str:
-    """The compute target's pure decision procedure (no caches)."""
+    """The compute target's cost model (the reference's
+    ``cost_model_engine``; with no plan table or autotune in front of it,
+    the port needs no second name)."""
     from repro_torch.api.targets import get_target
 
     return get_target(target).select_engine(m, k, n, a_bits, w_bits, conv)
