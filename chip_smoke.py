@@ -15,14 +15,27 @@ Phases, each of which makes the script exit nonzero when it fails:
    card (pinned-scale accumulators and full-epilogue outputs exactly
    equal) and time kernel, plain version and a library yardstick beside
    the card's bound;
-4. main path: through ``build -> compile(target="cuda") ->
+   the LM kernels (``attn_flash`` at the bucket prefill's shape and one
+   window shape, ``attn_paged`` at a decode step and a prefill chunk) are
+   held against their plain versions within 1e-5 x max|v| on float32
+   inputs (and one bfloat16 rounding on bfloat16 ones) and timed in
+   bfloat16, the main path's type;
+4. CNN main path: through ``build -> compile(target="cuda") ->
    serve(max_batch=8)`` at W1A4 and W1A8, full-width svhn answers a
    16-request correctness set three times over (logits exactly equal to
    the plain versions', alone vs batched within a tolerance), then serves
    a closed loop of 32 outstanding requests for a 4 s window, the
    serving measurement; full AlexNet runs one 224x224 W1A8 forward at
    batch 8 with the same checks; the launch counts are checked;
-5. one JSON line listing the kernels, then the contract's last line.
+5. LM main path: full-width SmolLM-360M W1A8 (random weights, seed 2)
+   serves two 2048-token prompts x 16 new tokens through ``ServeEngine``
+   + ``LMRunner`` (flash prefill) and 16 mixed requests through
+   ``ContinuousLMEngine`` (8 slots, pages of 16; paged attention); the
+   launch counts are checked, the tokens held against the same paths on
+   the plain versions and continuous against alone (a token may differ
+   only where the plain run's top-2 logit margin is under LM_MARGIN_TOL),
+   and one decode step of each engine is profiled;
+6. one JSON line listing the kernels, then the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
 The script imports nothing of JAX and nothing of the JAX package.
@@ -44,6 +57,7 @@ import torch  # noqa: E402
 # published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12    # non-tensor-core float32
 # alone vs batched only: a request's logits may move by level flips at
 # exact .5 boundaries when the library reductions and convolutions around
 # the kernels change summation order with the batch size; the JAX
@@ -61,6 +75,22 @@ SERVE_ROUNDS = 3
 # requests outstanding (four full buckets of 8) for WINDOW_S seconds
 WINDOW_S = 4.0
 CONCURRENCY = 32
+# LM main path: the bucket engine's batch, prompt and horizon; the
+# continuous engine's slots, page size, pages and request mix
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 2048, 16
+CONT_SLOTS, CONT_PAGE, CONT_PAGES, CONT_REQUESTS = 8, 16, 512, 16
+CONT_PROMPTS, CONT_HORIZONS = (32, 256), (8, 32)
+# a greedy token of a kernel run may differ from the plain run's only at
+# a position whose plain top-2 logit margin is below this (logit units).
+# SmolLM's random-weight logits have a standard deviation near 0.6; the
+# kernels' float outputs differ from their plain versions by ~1e-7 relative,
+# which 32 layers of bf16 rounding and 8-bit requantization can grow to
+# level flips; 0.05 is an allowance of a few such flips' worth.
+LM_MARGIN_TOL = 0.05
+# the kernels against their plain versions: float32 logits are the same
+# integers times the same scale, so only the order of exp and the sums
+# differs; bfloat16 outputs add one rounding of the output
+ATTN_TOL_F32, ATTN_TOL_BF16 = 1e-5, 2.0 ** -7   # x max|v|
 
 
 class SmokeFailure(RuntimeError):
@@ -104,8 +134,13 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(ops: float, nbytes: float, fp32_flops: float = 0.0
+             ) -> tuple[float, str]:
+    """Larger of bytes over the memory rate and the arithmetic: int8
+    operations at the int8 tensor-core rate plus float32 operations at the
+    non-tensor float32 rate."""
+    t_ops = (ops / PEAK_INT8_OPS + fp32_flops / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -224,6 +259,165 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     return summary
 
 
+def _kept_pairs(sq: int, causal: bool, window) -> int:
+    """(query row, key) pairs one (batch, head) of contiguous attention
+    keeps under its masks."""
+    i = torch.arange(sq)[:, None]
+    j = torch.arange(sq)[None, :]
+    m = torch.ones((sq, sq), dtype=torch.bool)
+    if causal:
+        m &= j <= i
+    if window:
+        m &= j > i - window
+    return int(m.sum())
+
+
+def _paged_case(dev, gen, rs, *, b, s, hp, hkv, hd, ps, np_, p, idle=0):
+    """Stale float32 pools, ragged page tables padded with the null page,
+    ppos written for each slot's live positions and query rows at those
+    positions.  ``idle`` trailing slots have no pages and q_pos -1 (idle
+    decode slots); with s > 1 the last slot's final rows are padding."""
+    pk = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=dev)
+    pv = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=dev)
+    pk[np_], pv[np_] = 0.0, 0.0
+    ppos = np.full((np_ + 1, ps), -1, np.int32)
+    table = np.full((b, p), np_, np.int32)
+    q_pos = np.full((b, s), -1, np.int32)
+    pages = list(rs.permutation(np_))
+    for i in range(b - idle):
+        n_tok = int(rs.randint(s, p * ps + 1))
+        own = [pages.pop() for _ in range(-(-n_tok // ps))]
+        table[i, :len(own)] = own
+        for t in range(n_tok):
+            ppos[own[t // ps], t % ps] = t
+        q_pos[i] = np.arange(n_tok - s, n_tok)
+    if s > 1:
+        q_pos[b - idle - 1, s - s // 3:] = -1
+    q = torch.randn((b, s, hp, hd), generator=gen, device=dev)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return q, pk, pv, to(ppos), to(table), to(q_pos)
+
+
+def lm_kernel_phase(flush: torch.Tensor) -> dict:
+    """attn_flash and attn_paged at the LM main path's shapes, held
+    against their plain versions (float32 and bfloat16 inputs) and timed
+    in bfloat16 beside their bound and F.scaled_dot_product_attention
+    (bf16, unquantized q/k/v; for paged, on K/V already gathered through
+    the table and expanded for GQA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_flash import attn_flash, attn_paged
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rs = np.random.RandomState(5)
+    summary = {"attn_flash": [], "attn_paged": []}
+    for case, (b, sq, h, hd, window) in (
+            ("bucket prefill", (LM_BATCH, LM_PROMPT, 15, 64, None)),
+            ("window 256", (1, LM_PROMPT, 15, 64, 256))):
+        q, k, v = (torch.randn((b, sq, h, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        kw = dict(causal=True, window=window)
+        got, ref = attn_flash(q, k, v, **kw), attn_flash(q, k, v,
+                                                         reference=True, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = ATTN_TOL_F32 * float(v.abs().max())
+        check(err <= tol, f"attn_flash {case} f32: max abs {err} > {tol}")
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got_b = attn_flash(qb, kb, vb, **kw)
+        ref_b = attn_flash(qb, kb, vb, reference=True, **kw)
+        err_b = float((got_b.float() - ref_b.float()).abs().max())
+        tol_b = ATTN_TOL_BF16 * float(vb.float().abs().max())
+        check(err_b <= tol_b, f"attn_flash {case} bf16: max abs {err_b} > "
+                              f"{tol_b}")
+        pairs = b * h * _kept_pairs(sq, True, window)
+        nbytes = 4 * b * sq * h * hd * 2      # q, k, v in, out, bf16
+        t = [x.transpose(1, 2).contiguous() for x in (qb, kb, vb)]
+        if window:
+            i = torch.arange(sq, device=dev)
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+            lib = lambda t=t, mask=mask: F.scaled_dot_product_attention(  # noqa: E731
+                *t, attn_mask=mask)
+        else:
+            lib = lambda t=t: F.scaled_dot_product_attention(  # noqa: E731
+                *t, is_causal=True)
+        row = dict(case=case, shape=[b, sq, h, hd], window=window,
+                   max_abs_err=err, tol=tol, max_abs_err_bf16=err_b,
+                   tol_bf16=tol_b,
+                   ms=time_ms(lambda: attn_flash(qb, kb, vb, **kw), 20, flush),
+                   plain_ms=time_ms(lambda: attn_flash(
+                       qb, kb, vb, reference=True, **kw), 3, flush),
+                   library_call="F.scaled_dot_product_attention bf16",
+                   library_ms=time_ms(lib, 20, flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * hd * pairs, nbytes,
+                                                    2.0 * hd * pairs)
+        summary["attn_flash"].append(row)
+        print("KERNEL attn_flash", json.dumps(row), flush=True)
+
+    p_tab = -(-(CONT_PROMPTS[1] + CONT_HORIZONS[1]) // CONT_PAGE)
+    for case, (b, s, idle) in (("decode step", (CONT_SLOTS, 1, 1)),
+                               ("prefill chunk", (1, CONT_PAGE, 0))):
+        hp, hkv, hd = 15, 5, 64
+        q, pk, pv, ppos, table, q_pos = _paged_case(
+            dev, gen, rs, b=b, s=s, hp=hp, hkv=hkv, hd=hd, ps=CONT_PAGE,
+            np_=CONT_PAGES, p=p_tab, idle=idle)
+        kw = dict(causal=True, quantized=True, n_q_heads=hp)
+        valid = q_pos >= 0
+        errs = {}
+        for dtype, rel in ((torch.float32, ATTN_TOL_F32),
+                           (torch.bfloat16, ATTN_TOL_BF16)):
+            args = (q.to(dtype), pk.to(dtype), pv.to(dtype), ppos, table,
+                    q_pos)
+            got = attn_paged(*args, **kw).float()
+            ref = attn_paged(*args, reference=True, **kw).float()
+            torch.cuda.synchronize()
+            tol = rel * float(args[2].float().abs().max())
+            e_valid = float((got[valid] - ref[valid]).abs().max())
+            e_pad = float((got[~valid] - ref[~valid]).abs().max())
+            check(e_valid <= tol and e_pad <= tol,
+                  f"attn_paged {case} {dtype}: max abs {e_valid} (valid "
+                  f"rows), {e_pad} (padding rows) > {tol}")
+            errs[str(dtype).split(".")[1]] = (e_valid, e_pad, tol)
+        args = (q.bfloat16(), pk.bfloat16(), pv.bfloat16(), ppos, table,
+                q_pos)
+        tl = table.long()
+        live = tl != CONT_PAGES
+        pos_g = ppos[tl].reshape(b, -1)                    # (B, P*ps)
+        keep = ((pos_g[:, None, :] >= 0)
+                & (pos_g[:, None, :] <= q_pos[:, :, None]) & valid[..., None])
+        pairs = hp * int(keep.sum())
+        n_live = int(live.sum())
+        nbytes = (2 * q.numel() * 2                        # q in, out (bf16)
+                  + n_live * CONT_PAGE * hkv * hd * 2 * 2  # live K, V pages
+                  + n_live * CONT_PAGE * 4                 # their positions
+                  + table.numel() * 4 + q_pos.numel() * 4)
+        idx = torch.clamp(torch.arange(hp, device=dev) // (hp // hkv),
+                          max=hkv - 1)
+        kg = args[1][tl].reshape(b, -1, hkv, hd)[:, :, idx].transpose(1, 2)
+        vg = args[2][tl].reshape(b, -1, hkv, hd)[:, :, idx].transpose(1, 2)
+        qt = args[0].transpose(1, 2)
+        mask = keep[:, None]
+        row = dict(case=case, slots=b, rows=s, heads=[hp, hkv], head_dim=hd,
+                   page_size=CONT_PAGE, table_pages=p_tab, live_pages=n_live,
+                   kept_pairs=pairs, max_abs_err=errs["float32"][0],
+                   max_abs_err_padding_rows=errs["float32"][1],
+                   tol=errs["float32"][2], max_abs_err_bf16=errs["bfloat16"][0],
+                   tol_bf16=errs["bfloat16"][2],
+                   ms=time_ms(lambda: attn_paged(*args, **kw), 30, flush),
+                   plain_ms=time_ms(lambda: attn_paged(
+                       *args, reference=True, **kw), 5, flush),
+                   library_call="F.scaled_dot_product_attention bf16 on "
+                                "gathered, GQA-expanded K/V",
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kg, vg, attn_mask=mask), 30, flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * hd * pairs, nbytes,
+                                                    2.0 * hd * pairs)
+        summary["attn_paged"].append(row)
+        print("KERNEL attn_paged", json.dumps(row), flush=True)
+    return summary
+
+
 def _max_diff(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(np.asarray(a) - np.asarray(b)).max())
 
@@ -311,7 +505,8 @@ def main_path(card: str) -> dict:
     svhn_dispatches = sum(dep.stats["dispatches"] - d0[tag]
                           for tag, (_, dep) in deps.items())
     want = {"conv_implicit": 5 * svhn_dispatches + 4,
-            "fused_qgemm": 1 * svhn_dispatches + 2}
+            "fused_qgemm": 1 * svhn_dispatches + 2,
+            "attn_flash": 0, "attn_paged": 0}
     check(launches == want, f"launch counts {launches} != expected {want}")
     report = {"launches": launches, "svhn": {}, "alexnet": {}}
     for tag, rr in rounds.items():
@@ -377,8 +572,209 @@ def main_path(card: str) -> dict:
     return report
 
 
+def _hold_tokens(tag: str, got: np.ndarray, ref: np.ndarray,
+                 margins: np.ndarray) -> dict:
+    """Greedy tokens of one request (or rows of a batch) against the
+    oracle's: equal, or first different at a position whose oracle top-2
+    logit margin is under LM_MARGIN_TOL.  Later positions follow another
+    prefix and are not compared."""
+    got, ref = np.atleast_2d(got), np.atleast_2d(ref)
+    margins = np.atleast_2d(margins)
+    check(got.shape == ref.shape, f"{tag}: tokens {got.shape} vs {ref.shape}")
+    div = []
+    for r in range(got.shape[0]):
+        diff = np.flatnonzero(got[r] != ref[r])
+        if diff.size == 0:
+            continue
+        t = int(diff[0])
+        m = float(margins[r, t])
+        check(m < LM_MARGIN_TOL, f"{tag}: row {r} differs at position {t} "
+                                 f"where the oracle's top-2 margin is {m} "
+                                 f">= {LM_MARGIN_TOL}")
+        div.append(dict(row=r, position=t, margin=m))
+    return dict(positions=int(got.size), divergences=div)
+
+
+def lm_main_path(card: str) -> dict:
+    """Full-width SmolLM-360M W1A8 through both LM entry points."""
+    import dataclasses
+
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
+                                           ServeEngine)
+    from repro_torch.launch.serve import serve_once
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import prequantize_params
+
+    dev = torch.device("cuda")
+    phases = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+    params = prequantize_params(T.init_lm(
+        torch.Generator(device=dev).manual_seed(2), cfg, SINGLE), cfg)
+    torch.cuda.synchronize()
+    phases["init_and_prequantize_s"] = time.perf_counter() - t0
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_BATCH)]
+    payloads = [(rs.randint(0, cfg.vocab, rs.randint(
+        CONT_PROMPTS[0], CONT_PROMPTS[1] + 1)).astype(np.int32),
+        int(rs.randint(CONT_HORIZONS[0], CONT_HORIZONS[1] + 1)))
+        for _ in range(CONT_REQUESTS)]
+    max_seq = CONT_PROMPTS[1] + CONT_HORIZONS[1]
+
+    def cont_engine(**kw):
+        return ContinuousLMEngine(params, cfg, num_slots=CONT_SLOTS,
+                                  page_size=CONT_PAGE, num_pages=CONT_PAGES,
+                                  max_seq=max_seq, new_tokens=LM_NEW, **kw)
+
+    bucket = ServeEngine(LMRunner(params, cfg, new_tokens=LM_NEW),
+                         max_batch=LM_BATCH)
+    cont = cont_engine()
+    t0 = time.perf_counter()
+    bucket.serve([prompts[0][:64]])                 # warm-up, not counted
+    cont.serve([(payloads[0][0][:CONT_PAGE], 2)])   # warm-up, not counted
+    torch.cuda.synchronize()
+    phases["warm_up_s"] = time.perf_counter() - t0
+
+    # ---- the LM main path, counted
+    b0, c0 = bucket.stats["dispatches"], cont.stats["dispatches"]
+    steps0 = cont.stats["steps"]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    b_res = bucket.serve(prompts)
+    t_bucket = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_res = cont.serve(payloads)
+    t_cont = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    # ----
+    phases["bucket_s"], phases["continuous_s"] = t_bucket, t_cont
+    b_disp = bucket.stats["dispatches"] - b0
+    c_disp = cont.stats["dispatches"] - c0
+    want = {"fused_qgemm": 0, "conv_implicit": 0,
+            "attn_flash": cfg.n_layers * b_disp,
+            "attn_paged": cfg.n_layers * c_disp}
+    check(launches == want, f"LM launch counts {launches} != expected {want}")
+    check(b_disp == 1, f"bucket engine: {b_disp} dispatches for one bucket")
+
+    # tokens against the plain versions, and continuous against alone
+    t0 = time.perf_counter()
+    b_tok = np.stack([r.value for r in b_res])
+    check(b_tok.shape == (LM_BATCH, LM_NEW), f"bucket tokens {b_tok.shape}")
+    margins = []
+    ref_tok, _ = serve_once(params, cfg, SINGLE,
+                            torch.from_numpy(np.stack(prompts)).to(dev),
+                            LM_NEW, "serve", reference=True, margins=margins)
+    bucket_vs_plain = _hold_tokens(
+        "bucket vs plain", b_tok, ref_tok.cpu().numpy(),
+        torch.stack(margins, dim=1).cpu().numpy())
+    ref_eng = cont_engine(reference=True, record_margins=True)
+    c_ref = ref_eng.serve(payloads)
+    del ref_eng
+    alone_eng = cont_engine(record_margins=True)
+    c_alone = [alone_eng.serve([p])[0] for p in payloads]
+    del alone_eng
+    cont_vs_plain = dict(positions=0, divergences=[])
+    cont_vs_alone = dict(positions=0, divergences=[])
+    for i, (r, ref, alone) in enumerate(zip(c_res, c_ref, c_alone)):
+        check(len(r.value) == payloads[i][1],
+              f"continuous request {i}: {len(r.value)} tokens")
+        check(np.all((r.value >= 0) & (r.value < cfg.vocab)),
+              f"continuous request {i}: token outside the vocab")
+        for acc, oracle, tag in ((cont_vs_plain, ref, "plain"),
+                                 (cont_vs_alone, alone, "alone")):
+            h = _hold_tokens(f"continuous request {i} vs {tag}", r.value,
+                             oracle.value, oracle.margins)
+            acc["positions"] += h["positions"]
+            acc["divergences"] += [dict(d, request=i)
+                                   for d in h["divergences"]]
+    # the logits behind the first token, kernels vs plain versions
+    layers = T.unstack_layers(params, cfg)
+    toks = torch.from_numpy(np.stack(prompts)).to(dev)
+    lk, _ = T.prefill(params, cfg, SINGLE, tokens=toks, layers=layers)
+    lp, _ = T.prefill(params, cfg, SINGLE, tokens=toks, layers=layers,
+                      reference=True)
+    last_k, last_p = lk[:, -1, :cfg.vocab], lp[:, -1, :cfg.vocab]
+    check(bool(torch.isfinite(last_k).all()), "prefill logits not finite")
+    prefill_logits = dict(
+        max_abs_diff=float((last_k - last_p).abs().max()),
+        max_abs_logit=float(last_p.abs().max()),
+        argmax_equal=bool(torch.equal(last_k.argmax(-1), last_p.argmax(-1))))
+    del lk, lp
+    phases["oracle_runs_s"] = time.perf_counter() - t0
+
+    emitted = sum(len(r.value) for r in c_res)
+    lat = sorted(r.latency_s for r in c_res)
+    report = dict(
+        launches=launches, card=card,
+        bucket=dict(requests=LM_BATCH, prompt_len=LM_PROMPT,
+                    new_tokens=LM_NEW, dispatches=b_disp, wall_s=t_bucket,
+                    requests_per_s=LM_BATCH / t_bucket,
+                    tokens_per_s=LM_BATCH * LM_NEW / t_bucket,
+                    prompt_tokens_per_s=LM_BATCH * LM_PROMPT / t_bucket,
+                    vs_plain=bucket_vs_plain),
+        continuous=dict(requests=CONT_REQUESTS, slots=CONT_SLOTS,
+                        page_size=CONT_PAGE, pages=CONT_PAGES,
+                        prompt_tokens=sum(len(p[0]) for p in payloads),
+                        emitted_tokens=emitted, dispatches=c_disp,
+                        steps=cont.stats["steps"] - steps0,
+                        wall_s=t_cont, requests_per_s=CONT_REQUESTS / t_cont,
+                        tokens_per_s=emitted / t_cont,
+                        p50_latency_ms=1e3 * lat[len(lat) // 2],
+                        p99_latency_ms=1e3 * lat[-1],
+                        pool=cont.pool.stats(), vs_plain=cont_vs_plain,
+                        vs_alone=cont_vs_alone),
+        prefill_last_logits_vs_plain=prefill_logits)
+    del cont
+    t0 = time.perf_counter()
+    report["profile"] = lm_profiles(params, cfg, layers, cont_engine)
+    phases["profile_s"] = time.perf_counter() - t0
+    report["phases_s"] = phases
+    print("LM", json.dumps(report), flush=True)
+    print("LM DIVERGENT POSITIONS", json.dumps(dict(
+        bucket_vs_plain=len(bucket_vs_plain["divergences"]),
+        continuous_vs_plain=len(cont_vs_plain["divergences"]),
+        continuous_vs_alone=len(cont_vs_alone["divergences"]))), flush=True)
+    return report
+
+
+def lm_profiles(params, cfg, layers, cont_engine) -> dict:
+    """One decode step of each LM engine under the profiler: the bucket
+    engine's (batch LM_BATCH at position LM_PROMPT, attention over the
+    full cache) and the continuous engine's (CONT_SLOTS slots, each past a
+    prompt of half the longest, 128 tokens).  Each step rewrites the same cache slot, so the
+    repeats do the same work."""
+    from repro_torch.configs import SINGLE
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    cache = T.init_cache(cfg, SINGLE, LM_BATCH, LM_PROMPT + LM_NEW,
+                         device=dev)
+    cache["attn"]["pos"][:, :, :LM_PROMPT] = torch.arange(
+        LM_PROMPT, dtype=torch.int32, device=dev)
+    tok = torch.ones((LM_BATCH, 1), dtype=torch.int32, device=dev)
+    out = {"bucket_decode_step": profile_forward(
+        lambda: T.decode_step(params, cache, tok, LM_PROMPT, cfg, SINGLE,
+                              layers=layers), 3)}
+    del cache
+    eng = cont_engine()
+    n = CONT_PROMPTS[1] // 2
+    for i in range(CONT_SLOTS):
+        eng.submit((np.full(n, i + 1, np.int32), CONT_HORIZONS[1]))
+    eng._admit()
+    toks = np.ones((CONT_SLOTS, 1), np.int32)
+    pos = np.full((CONT_SLOTS,), n, np.int32)
+    valid = np.ones((CONT_SLOTS,), np.int32)
+    out["continuous_decode_step"] = profile_forward(
+        lambda: eng._dispatch(eng._table, toks, pos, valid), 3)
+    return out
+
+
 def _kernel_label(name: str) -> str:
-    for k in ("fused_qgemm", "conv_implicit"):
+    for k in ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged"):
         if f"{k}_kernel" in name:
             return k
     return name[:70]
@@ -426,6 +822,10 @@ def kernels_line(summary: dict, launches: dict) -> dict:
                         "src/repro/kernels/fused_qgemm.py:134"),
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
                           "src/repro/kernels/conv_implicit.py:150"),
+        "attn_flash": ("src/repro_torch/csrc/attn_flash.cu",
+                       "src/repro/kernels/attn_flash.py:361"),
+        "attn_paged": ("src/repro_torch/csrc/attn_paged.cu",
+                       "src/repro/kernels/attn_flash.py:602"),
     }
     out = []
     for name, rows in summary.items():
@@ -442,10 +842,13 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=bound_by, library_ms=tot["library_ms"],
-            timed_over="one W1A8 launch at each batch-8 main-path shape",
-            shapes=[{k: r[k] for k in ("model", "layer", "shape", "ms",
-                                       "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms", "library_call")}
+            timed_over=("one W1A8 launch at each batch-8 main-path shape"
+                        if name in ("fused_qgemm", "conv_implicit") else
+                        "one bf16 call at each LM main-path shape"),
+            shapes=[{k: r[k] for k in ("model", "layer", "case", "shape",
+                                       "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_call") if k in r}
                     for r in timed]))
     return {"kernels": out}
 
@@ -471,13 +874,27 @@ def main() -> int:
             if "ptxas info" in line or "spill" in line:
                 print(f"PTXAS {name}: {line.strip()}")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
     summary = kernel_phase(flush)
+    t1 = time.perf_counter()
+    summary.update(lm_kernel_phase(flush))
+    print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, lm "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     del flush
     if "--kernels-only" in sys.argv[1:]:
         print("KERNELS-ONLY done", flush=True)
         return 0
+    t0 = time.perf_counter()
     report = main_path(card)
-    print(json.dumps(kernels_line(summary, report["launches"])))
+    launches = {k: report["launches"][k] for k in ("fused_qgemm",
+                                                    "conv_implicit")}
+    print(f"CNN MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm = lm_main_path(card)
+    launches.update({k: lm["launches"][k] for k in ("attn_flash",
+                                                     "attn_paged")})
+    print(f"LM MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(kernels_line(summary, launches)))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

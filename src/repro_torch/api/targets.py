@@ -8,8 +8,10 @@ Two kinds of target:
   otherwise — with the TPU's 8 MiB VMEM residency bound replaced by the
   shared-memory bound of the port's implicit kernel, computed by the same
   function the kernel wrapper uses.  The reference's other engines are not
-  ported yet and are infeasible here.  No crossover constant is tuned:
-  none has been measured on the card.
+  ported yet and are infeasible here.  Attention routes as the TPU target
+  does too (``flash`` for quantized prefill from 2048 tokens, ``paged``
+  for page-table geometries).  No crossover constant is tuned: none has
+  been measured on the card.
 * :class:`PIMTarget` — the paper's four accelerators, priced with the
   calibrated device model exactly as the reference prices them.
 """
@@ -54,6 +56,10 @@ IMPLICIT_AMP_MIN = 4.0
 IMPLICIT_PADDINGS = ("SAME", "VALID")
 # the TPU routing's depth threshold, kept until H100 rows exist
 IMPLICIT_KDIM_MIN = 512
+# the TPU table's attention crossovers (targets.py attn_flash_seq_min,
+# attn_chunk_seq_min), kept until H100 rows exist
+ATTN_FLASH_SEQ_MIN = 2048
+ATTN_CHUNK_SEQ_MIN = 8192
 
 
 def _implicit_eligible(conv) -> bool:
@@ -90,6 +96,28 @@ class ComputeTarget:
             if need <= budget:
                 return "implicit"
         return "fused"
+
+    def select_attn_engine(self, attn) -> str:
+        """The reference's attention decision procedure over the TPU
+        table's constants: ``paged`` for page-table geometries, ``flash``
+        for quantized prefill of at least ATTN_FLASH_SEQ_MIN tokens, else
+        ``full``.  Geometries the reference sends to ``banded`` or
+        ``chunked`` raise: those engines are not ported."""
+        from repro_torch.kernels.attn_flash import flash_levels_exact
+
+        if attn.page_size:
+            return "paged"
+        seq = max(attn.seq_q, attn.seq_kv)
+        if (attn.quantized and seq >= ATTN_FLASH_SEQ_MIN and attn.seq_q > 1
+                and flash_levels_exact(attn.head_dim, 8, 8)):
+            return "flash"
+        if attn.window and attn.banded_ok and attn.seq_q > 2 * attn.window:
+            raise NotImplementedError("attention engine 'banded' is not yet "
+                                      "ported")
+        if seq >= ATTN_CHUNK_SEQ_MIN:
+            raise NotImplementedError("attention engine 'chunked' is not yet "
+                                      "ported")
+        return "full"
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """DoReFa low-bitwidth quantizers (port of ``repro/core/quant.py``).
 
-Only the serve-side views the CNN slice needs: the bit-width config, the
-integer-level views consumed by the level GEMM, and the float activation
-quantizer applied after each hidden layer.  ``torch.round`` rounds half to
+Only the serve-side views the CNN and LM slices need: the bit-width
+config, the integer-level views consumed by the level GEMM (unsigned for
+the CNN, affine-signed for transformer activations), and the float
+activation quantizer applied after each hidden CNN layer.  ``torch.round`` rounds half to
 even, exactly as ``jnp.round`` does; the CUDA kernels use ``rintf`` (the
 same rounding), never ``roundf``.
 """
@@ -19,7 +20,11 @@ class QuantConfig:
 
     ``engine``: 'auto' (the compute target's dispatch), an explicit engine
     name ('fused' / 'implicit' on this port), or 'fp' (no bitwise engine).
-    The reference's ``act_scale_mode`` (signed LM path) is not ported yet.
+
+    ``act_scale_mode`` is the dynamic activation-scale granularity on the
+    signed (LM) serve path: 'tensor' (one absmax over the dispatched batch)
+    or 'row' (one absmax per GEMM row, so a row's levels do not depend on
+    its batchmates — the continuous-batching engine forces it).
     """
 
     w_bits: int = 1
@@ -27,6 +32,7 @@ class QuantConfig:
     g_bits: int = 8
     first_last_fp: bool = True
     engine: str = "auto"
+    act_scale_mode: str = "tensor"
 
     def tag(self) -> str:
         return f"w{self.w_bits}a{self.a_bits}g{self.g_bits}"
@@ -81,3 +87,35 @@ def weight_levels(w: torch.Tensor, bits: int):
     levels = torch.clamp(torch.round(t * n), 0, n).to(torch.int32)
     return (levels, torch.tensor(2.0 / n, dtype=w.dtype, device=w.device),
             torch.tensor(n / 2.0, dtype=w.dtype, device=w.device))
+
+
+def signed_levels(a: torch.Tensor, s: torch.Tensor, bits: int
+                  ) -> torch.Tensor:
+    """``clip(round(a / s) + z, 0, 2^b - 1)`` in ``a``'s dtype, each op
+    rounded to that dtype as XLA rounds it (a bfloat16 quotient rounds to
+    bfloat16 before ``round``), then int32; ``z = 2^(b-1)``."""
+    n = (1 << bits) - 1
+    z = float(1 << (bits - 1))
+    return torch.clamp(torch.round(a / s) + z, 0, n).to(torch.int32)
+
+
+def activation_levels_signed(a: torch.Tensor, bits: int):
+    """Affine (signed) integer-level view for transformer activations:
+    ``a_q = s * (levels - z)`` with ``z = 2^(b-1)`` and a per-tensor absmax
+    scale ``s = max|a| / z + 1e-12``, computed in ``a``'s dtype.
+
+    Returns ``(levels int32, s 0-d in a's dtype, z 0-d in a's dtype)``."""
+    z = float(1 << (bits - 1))
+    s = torch.max(torch.abs(a)) / z + 1e-12
+    return (signed_levels(a, s, bits), s,
+            torch.tensor(z, dtype=a.dtype, device=a.device))
+
+
+def activation_levels_signed_row(a: torch.Tensor, bits: int):
+    """Per-row variant of :func:`activation_levels_signed`: ``a`` is
+    (M, K) and the scale is a per-row absmax of shape (M, 1), so row m's
+    levels depend on row m alone."""
+    z = float(1 << (bits - 1))
+    s = torch.amax(torch.abs(a), dim=-1, keepdim=True) / z + 1e-12
+    return (signed_levels(a, s, bits), s,
+            torch.tensor(z, dtype=a.dtype, device=a.device))

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
                                 REPO_ROOT / "build" / "kernels"))
-SOURCES = ("fused_qgemm", "conv_implicit")
+SOURCES = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

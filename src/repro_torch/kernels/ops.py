@@ -1,5 +1,5 @@
-"""Serve entry points and engine dispatch for the quantized layers (port of
-the CNN half of ``repro/kernels/ops.py``).
+"""Serve entry points and engine dispatch for the quantized layers, and the
+attention engine dispatch (port of ``repro/kernels/ops.py``).
 
 Two engines are ported, one per hand-written kernel: ``fused`` (the fused
 level GEMM, :mod:`.fused_qgemm`) and ``implicit`` (the implicit-GEMM conv,
@@ -8,8 +8,12 @@ level GEMM, :mod:`.fused_qgemm`) and ``implicit`` (the implicit-GEMM conv,
 ported yet; asking for one raises.
 
 An unpinned call takes the compute target's cost model.  Not ported yet:
-the reference's dense plan table (it serves the LM compile pass) and its
-measured autotune layer.
+the reference's dense and attention plan tables (they serve the LM compile
+pass) and its measured autotune layer.
+
+Attention engines: ``full`` (plain PyTorch, as the reference computes it
+in XLA), ``flash`` (``csrc/attn_flash.cu``) and ``paged``
+(``csrc/attn_paged.cu``) are ported; ``chunked`` and ``banded`` are not.
 """
 from __future__ import annotations
 
@@ -150,3 +154,97 @@ def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                             z_w, a_bits=a_bits, w_bits=w_bits, engine=engine,
                             reference=reference)
     return out.reshape(b, oh, ow, cout)
+
+
+# ---------------------------------------------------------------------------
+# Attention engine dispatch
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnShape:
+    """Static attention geometry for engine selection.  ``quantized`` marks
+    a serve path whose projections already run on integer levels (only
+    then may the quantized flash kernel be dispatched); ``page_size`` set
+    makes this a page-table dispatch, ``seq_kv`` then being the table
+    extent (table width * page_size)."""
+    seq_q: int
+    seq_kv: int
+    heads: int
+    head_dim: int
+    causal: bool = True
+    window: int | None = None
+    batch: int = 1
+    quantized: bool = False
+    banded_ok: bool = True
+    page_size: int | None = None
+
+
+ATTN_ENGINES = ("full", "chunked", "banded", "flash", "paged")
+
+
+def paged_attn_bounds(attn: AttnShape, batch: int = 1) -> tuple[bool, str]:
+    """Static feasibility bounds for the paged engine: the page size tiles
+    the table extent, the flat KV index fits int32, and one
+    ``csrc/attn_paged.cu`` block's shared memory fits the card.  The
+    reference's bound is a TPU VMEM budget (``PAGED_VMEM_BUDGET``); here it
+    is the kernel's own layout, bounded for the worst GQA grouping (every
+    query head on one KV head)."""
+    from .attn_flash import SMEM_LIMIT, paged_smem_bytes
+
+    ps = attn.page_size
+    if not ps or ps < 1:
+        return False, "paged needs a positive page_size"
+    if attn.seq_kv % ps != 0:
+        return False, (f"page_size={ps} does not tile the table extent "
+                       f"seq_kv={attn.seq_kv}")
+    flat = batch * attn.seq_kv * attn.heads * attn.head_dim
+    if flat >= (1 << 31):
+        return False, (f"flat KV index {flat} overflows int32 "
+                       f"(batch={batch}, seq_kv={attn.seq_kv})")
+    need = paged_smem_bytes(attn.heads * attn.seq_q, attn.head_dim, ps)
+    if need > SMEM_LIMIT:
+        return False, (f"a paged block needs {need} B of shared memory "
+                       f"(> {SMEM_LIMIT})")
+    return True, ""
+
+
+def attn_engine_feasible(engine: str, attn: AttnShape) -> tuple[bool, str]:
+    """Can ``engine`` realize this attention geometry on the port?"""
+    from .attn_flash import KERNEL_HEAD_DIMS, flash_levels_exact
+
+    if engine in ("chunked", "banded"):
+        return False, f"attention engine {engine!r} is not yet ported"
+    if engine == "flash":
+        if not attn.quantized:
+            return False, ("flash consumes level-quantized q/k; dispatching"
+                           " it on an unquantized path would change numerics")
+        if attn.seq_q <= 1:
+            return False, "flash tiles over q blocks (decode steps stay full)"
+        if not flash_levels_exact(attn.head_dim, 8, 8):
+            return False, (f"flash score dot inexact at head_dim="
+                           f"{attn.head_dim} (exceeds the fp32 mantissa)")
+        if attn.head_dim not in KERNEL_HEAD_DIMS:
+            return False, (f"the flash kernel takes head_dim in "
+                           f"{KERNEL_HEAD_DIMS}, not {attn.head_dim}")
+        return True, ""
+    if engine == "paged":
+        ok, why = paged_attn_bounds(attn, batch=max(attn.batch, 1))
+        if not ok:
+            return False, why
+        if attn.quantized and not flash_levels_exact(attn.head_dim, 8, 8):
+            return False, (f"paged score dot inexact at head_dim="
+                           f"{attn.head_dim} (exceeds the fp32 mantissa)")
+        return True, ""
+    if engine == "full":
+        ok = attn.page_size is None
+        return ok, "" if ok else ("full is a contiguous-KV engine; "
+                                  "page-table geometries dispatch 'paged'")
+    return False, f"unknown attention engine {engine!r}"
+
+
+def select_attn_engine(attn: AttnShape, target: str = "cuda") -> str:
+    """The compute target's attention decision procedure (no plan table in
+    front of it yet)."""
+    from repro_torch.api.targets import get_target
+
+    return get_target(target).select_attn_engine(attn)

@@ -1,21 +1,32 @@
-"""Request-level serving engine for CNN plans (port of the CNN half of
-``repro/launch/engine.py``, single device).
+"""Request-level serving engines (port of ``repro/launch/engine.py``,
+single device): the bucket engine for CNN plans and LMs, and the
+continuous-batching LM engine over a paged KV cache.
 
-Requests are grouped by image shape into padding buckets; a bucket
+Requests are grouped by shape (image shape; prompt length and horizon)
+into padding buckets; a bucket
 flushes at ``max_batch`` or when its oldest request has waited
 ``flush_deadline_s``.  Ragged buckets pad up to the next power of two with
 copies of row 0.  Dispatch is pipelined: bucket *i* is launched, bucket
 *i+1* is staged (pinned host buffer, ``non_blocking`` copy) while it
 runs, and bucket *i-1* is harvested (``.cpu()``, which waits for it).
 
-Contract: a request's result does not depend on its batchmates — the
-serve forward is per-sample (per-sample norm statistics, per-row kernels).
+Contract (CNN): a request's result does not depend on its batchmates —
+the serve forward is per-sample (per-sample norm statistics, per-row
+kernels).
 The kernels' integer accumulators are batch-invariant, and on the CPU
 every float op is too, so there a request's logits are bit-identical alone
 and batched (``tests/test_torch_api.py``).  On the card the float ops
 around the kernels are library reductions and convolutions whose
 summation order may change with the batch size, so ``chip_smoke.py``
 holds alone-vs-batched to equal argmax and a stated tolerance.
+
+LM serving: :class:`LMRunner` turns one bucket of equal-length prompts
+into prefill + greedy decode (``launch/serve.py``); with the default
+per-tensor activation scales a request's levels depend on its bucket, as
+in the reference.  :class:`ContinuousLMEngine` keeps one persistent batch
+of decode slots over a paged KV pool, admits and retires requests between
+steps, and forces per-row scales, so there a request's tokens do not
+depend on its batchmates.
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.kv_pages import PagePool, PoolExhausted, pages_needed
 
 
 class QueueFull(RuntimeError):
@@ -47,10 +60,24 @@ class Result:
     t_done: float
     batch: int    # real co-batched requests in the dispatch
     padded: int   # dispatched batch after padding
+    t_start: float = 0.0  # when the engine began computing this request
+    # top-2 logit margin of each greedy pick (ContinuousLMEngine with
+    # record_margins=True), else None
+    margins: Optional[np.ndarray] = None
 
     @property
     def latency_s(self) -> float:
         return self.t_done - self.t_submit
+
+    @property
+    def queue_wait_s(self) -> float:
+        """Submit -> first compute (bucket dispatch / slot admission)."""
+        return max(self.t_start - self.t_submit, 0.0)
+
+    @property
+    def service_s(self) -> float:
+        """First compute -> harvest."""
+        return self.t_done - self.t_start
 
 
 @dataclasses.dataclass
@@ -134,20 +161,108 @@ class CNNRunner:
     def collate(self, payloads, pad_to: int) -> np.ndarray:
         return _collate(payloads, pad_to, np.float32)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         from repro_torch.core.plan import plan_forward
 
         return plan_forward(self.plan, x)
 
 
-class ServeEngine:
+class LMRunner:
+    """Batched LM generate (tokens (S_p,) -> generated tokens (S_d,)):
+    prefill, cache growth and the greedy decode loop of
+    ``launch/serve.py`` for one bucket.
+
+    Payloads are a token array (horizon = ``new_tokens``) or a
+    ``(tokens, new_tokens)`` tuple; the shape key holds prompt length and
+    horizon, so mixed horizons land in distinct buckets."""
+
+    def __init__(self, params, cfg, *, new_tokens: int, qmode: str = "serve",
+                 plan=None, reference: bool = False):
+        from repro_torch.configs import SINGLE
+        from repro_torch.launch.serve import make_prefill
+
+        self.params = params
+        self.cfg = cfg
+        self.new_tokens = new_tokens
+        self.qmode = qmode
+        self.plan = plan or SINGLE
+        self.reference = reference
+        self.device = params["embed"].device
+        self._prefill = make_prefill(params, cfg, self.plan, qmode, reference)
+        self._generate: dict = {}   # (prompt_len, horizon) -> decode loop
+
+    @staticmethod
+    def split_payload(payload) -> tuple:
+        """Normalize a payload to ``(tokens, new_tokens | None)``."""
+        if isinstance(payload, tuple):
+            toks, nt = payload
+            return np.asarray(toks, np.int32), int(nt)
+        return np.asarray(payload, np.int32), None
+
+    def shape_key(self, payload) -> tuple:
+        toks, nt = self.split_payload(payload)
+        return ("lm", int(toks.shape[-1]),
+                self.new_tokens if nt is None else nt)
+
+    def collate(self, payloads, pad_to: int) -> np.ndarray:
+        return _collate([self.split_payload(p)[0] for p in payloads],
+                        pad_to, np.int32)
+
+    def forward(self, toks: torch.Tensor, key=None) -> torch.Tensor:
+        """One bucket: (B, S_p) prompts -> (B, S_d) greedy tokens, the
+        horizon from the bucket's shape ``key`` (default ``new_tokens``)."""
+        from repro_torch.launch.serve import generate, make_generate
+
+        new_tokens = self.new_tokens if key is None else key[2]
+        shape = (toks.shape[1], new_tokens)
+        if shape not in self._generate:
+            self._generate[shape] = make_generate(
+                self.params, self.cfg, self.plan, self.qmode, *shape,
+                self.reference)
+        return generate(toks, new_tokens, self.cfg.vocab, self._prefill,
+                        self._generate[shape])
+
+
+class _SubmitRetryMixin:
+    """Bounded-backoff admission (needs ``submit``/``pump`` and a seeded
+    ``self._rng``)."""
+
+    def submit_retry(self, payload, t_submit: float | None = None, *,
+                     attempts: int = 6, base_s: float = 1e-3,
+                     max_s: float = 0.25,
+                     sleep: Callable[[float], None] = time.sleep) -> int:
+        """:meth:`submit` with bounded exponential backoff on QueueFull:
+        pump, sleep a jittered, growing delay, retry; re-raise QueueFull
+        after ``attempts`` tries.  ``t_submit`` keeps charging the request
+        from its true arrival."""
+        for a in range(attempts):
+            try:
+                return self.submit(payload, t_submit=t_submit)
+            except QueueFull:
+                if a == attempts - 1:
+                    raise
+                self.pump()
+                delay = min(base_s * (1 << a), max_s)
+                sleep(delay * (0.5 + self._rng.uniform()))
+        raise AssertionError("unreachable")
+
+
+def _seeded_rng(retry_rng) -> np.random.RandomState:
+    if isinstance(retry_rng, np.random.RandomState):
+        return retry_rng
+    return np.random.RandomState(0 if retry_rng is None else retry_rng)
+
+
+class ServeEngine(_SubmitRetryMixin):
     """Coalesce independent requests into batched dispatches on the plan
     params' device."""
 
     def __init__(self, runner, *, max_batch: int = 8,
                  flush_deadline_s: float = 0.005, max_pending: int = 4096,
+                 retry_rng=None,
                  clock: Callable[[], float] = time.perf_counter):
         self.runner = runner
+        self._rng = _seeded_rng(retry_rng)
         self.clock = clock
         self.max_pending = max_pending
         self.batcher = BucketBatcher(max_batch, flush_deadline_s)
@@ -232,22 +347,397 @@ class ServeEngine:
         inflight = None
         for i in range(len(buckets)):
             bucket, padded, dev = staged
-            out = self.runner.forward(dev)
+            t_start = self.clock()
+            out = self.runner.forward(dev, bucket.key)
             staged = self._stage(buckets[i + 1]) if i + 1 < len(buckets) else None
             if inflight is not None:
                 self._harvest(*inflight)
-            inflight = (bucket, padded, out)
+            inflight = (bucket, padded, out, t_start)
         if inflight is not None:
             self._harvest(*inflight)
 
-    def _harvest(self, bucket: Bucket, padded: int,
-                 out: torch.Tensor) -> None:
+    def _harvest(self, bucket: Bucket, padded: int, out: torch.Tensor,
+                 t_start: float) -> None:
         host = out.cpu().numpy()  # waits for this bucket's kernels
         n = len(bucket.requests)
         t_done = self.clock()
         for i, req in enumerate(bucket.requests):
             self._results[req.rid] = Result(req.rid, host[i], req.t_submit,
-                                            t_done, n, padded)
+                                            t_done, n, padded, t_start)
         self.stats["dispatches"] += 1
         self.stats["requests"] += n
         self.stats["padded_rows"] += padded - n
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching over a paged KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Pending:
+    """A submitted request waiting for a slot and pages."""
+    rid: int
+    tokens: np.ndarray
+    new_tokens: int
+    t_submit: float
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One in-flight request occupying a decode slot."""
+    rid: int
+    t_submit: float
+    t_start: float
+    tokens: np.ndarray      # prompt tokens (S_p,)
+    new_tokens: int
+    pages: list             # page indices owned by this request
+    pos: int                # next KV position to write (tokens inserted)
+    emitted: list           # generated tokens so far (first from prefill)
+    last_tok: int           # last generated token (next decode input)
+    margins: list           # top-2 logit margin of each pick (if recorded)
+
+
+def _top2_margin(row: np.ndarray) -> float:
+    top = np.partition(row, -2)[-2:]
+    return float(top[1] - top[0])
+
+
+class ContinuousLMEngine(_SubmitRetryMixin):
+    """Step-granular continuous batching over a paged KV cache.
+
+    One persistent batch of ``num_slots`` decode slots.  A waiting request
+    joins a free slot between steps (FIFO, no skip-ahead), reserving its
+    whole extent ``pages_needed(prompt + horizon)`` of pages up front; its
+    prompt streams into its pages in ``chunk``-token pieces at batch 1;
+    it retires when it reaches its horizon and frees its pages.  The model
+    runs at exactly two shapes, ``(1, chunk)`` and ``(num_slots, 1)``,
+    plus a page reset (``program_shapes`` records them).  ``submit``
+    raises :class:`QueueFull` past ``max_pending`` waiting requests and
+    ValueError for a request that could never fit.
+
+    Per-slot numerics are independent of batchmates: the constructor
+    forces ``act_scale_mode="row"`` for quantized serve configs, and paged
+    attention uses per-slot scales over ``ppos``-masked pages, so a
+    request's tokens are bit-identical alone and batched under the same
+    chunk schedule.  ``reference=True`` runs the attention kernels' plain
+    versions (the oracle); ``record_margins=True`` keeps each greedy
+    pick's top-2 logit margin in ``Result.margins``.
+
+    Not ported yet: the reference's epoch checkpoints (``checkpoint_dir``)
+    and fault hooks (``faults``), which come with the intermittency slice.
+    """
+
+    def __init__(self, params, cfg, *, num_slots: int = 4,
+                 page_size: int = 16, num_pages: int = 64,
+                 max_seq: int | None = None, new_tokens: int = 16,
+                 chunk: int | None = None, plan=None, qmode: str = "serve",
+                 max_pending: int = 4096, retry_rng=None,
+                 deadline_s: float | None = None,
+                 checkpoint_dir: str | None = None, faults=None,
+                 reference: bool = False, record_margins: bool = False,
+                 clock: Callable[[], float] = time.perf_counter):
+        from repro_torch.configs import SINGLE
+        from repro_torch.models import transformer as T
+
+        if checkpoint_dir is not None or faults is not None:
+            raise NotImplementedError("checkpoint_dir and faults (epoch "
+                                      "checkpoints, fault injection) are not "
+                                      "yet ported")
+        if num_slots < 1:
+            raise ValueError(f"need at least one slot, got {num_slots}")
+        quant = cfg.quant
+        if (qmode == "serve" and quant.engine != "fp" and quant.w_bits < 32
+                and quant.act_scale_mode != "row"):
+            # per-tensor absmax couples a row's levels to its batchmates,
+            # which change every step here: per-row scales are required
+            cfg = dataclasses.replace(
+                cfg, quant=dataclasses.replace(quant, act_scale_mode="row"))
+        self.cfg = cfg
+        self.plan = plan or SINGLE
+        self.qmode = qmode
+        self.reference = reference
+        self.record_margins = record_margins
+        self.clock = clock
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.new_tokens = new_tokens
+        self.chunk = chunk or page_size
+        self.max_seq = max_seq or page_size * num_pages
+        self.max_pending = max_pending
+        self.deadline_s = deadline_s
+        self._rng = _seeded_rng(retry_rng)
+        self.table_pages = pages_needed(self.max_seq, page_size)
+        self.pool = PagePool(num_pages, page_size)
+        self.params = params
+        self.device = params["embed"].device
+        self._layers = T.unstack_layers(params, cfg)
+        cache = T.init_paged_cache(cfg, self.plan, num_slots, num_pages,
+                                   page_size, self.table_pages,
+                                   device=self.device)
+        self._pools = {k: cache["attn"][k] for k in ("pk", "pv", "ppos")}
+        self._table = np.full((num_slots, self.table_pages),
+                              self.pool.null_page, np.int32)
+        self._slots: list = [None] * num_slots
+        self._waiting: deque[_Pending] = deque()
+        self._results: dict[int, Result] = {}
+        self.dead_letters: list[dict] = []
+        self._next_rid = 0
+        self.program_shapes: set = set()
+        self.stats = dict(dispatches=0, requests=0, padded_rows=0, steps=0,
+                          admissions=0, retirements=0, prefill_chunks=0,
+                          dead_lettered=0)
+
+    # -- device side ---------------------------------------------------------
+
+    def _dispatch(self, table_rows: np.ndarray, toks: np.ndarray,
+                  pos: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """One paged model step (pools updated in place) -> host logits
+        (B, S, vocab)."""
+        from repro_torch.models import transformer as T
+
+        dev = self.device
+        b = table_rows.shape[0]
+        self.program_shapes.add(("run", b, toks.shape[1]))
+        cache = {"attn": dict(self._pools,
+                              table=torch.from_numpy(table_rows).to(dev))}
+        logits, _ = T.paged_step(
+            self.params, cache, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(valid).to(dev),
+            self.cfg, self.plan, qmode=self.qmode, layers=self._layers,
+            reference=self.reference)
+        self.stats["dispatches"] += 1
+        return logits[:, :, :self.cfg.vocab].cpu().numpy()
+
+    def _reset_pages(self, pages: list) -> None:
+        """Mark freshly allocated pages never-written (ppos = -1), so stale
+        positions of a prior tenant cannot unmask its keys."""
+        self.program_shapes.add(("reset",))
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        self._pools["ppos"][:, idx] = -1
+
+    # -- queue side ----------------------------------------------------------
+
+    def _normalize(self, payload) -> tuple:
+        toks, nt = LMRunner.split_payload(payload)
+        return np.atleast_1d(toks).reshape(-1), (self.new_tokens if nt is None
+                                                 else nt)
+
+    def submit(self, payload, t_submit: float | None = None) -> int:
+        """Enqueue one request (token array, or ``(tokens, new_tokens)``);
+        returns its rid."""
+        toks, nt = self._normalize(payload)
+        total = len(toks) + nt
+        if total > self.max_seq:
+            raise ValueError(f"prompt+horizon = {total} exceeds max_seq "
+                             f"= {self.max_seq}")
+        if pages_needed(total, self.page_size) > self.pool.num_pages:
+            raise ValueError(f"request needs "
+                             f"{pages_needed(total, self.page_size)} pages; "
+                             f"pool has {self.pool.num_pages}")
+        if nt < 1:
+            raise ValueError(f"new_tokens must be >= 1, got {nt}")
+        if len(toks) < 1:
+            raise ValueError("empty prompt")
+        if len(self._waiting) >= self.max_pending:
+            raise QueueFull(f"{self.max_pending} requests pending")
+        rid = self._next_rid
+        self._next_rid += 1
+        now = self.clock()
+        self._waiting.append(
+            _Pending(rid, toks, nt, now if t_submit is None else t_submit))
+        return rid
+
+    # -- scheduler -----------------------------------------------------------
+
+    def _free_slot(self):
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _admit(self) -> None:
+        """FIFO admission while the head request's page reservation fits."""
+        while self._waiting:
+            slot_i = self._free_slot()
+            if slot_i is None:
+                return
+            req = self._waiting[0]
+            try:
+                pages = self.pool.alloc(pages_needed(
+                    len(req.tokens) + req.new_tokens, self.page_size))
+            except PoolExhausted:
+                return
+            self._waiting.popleft()
+            self._reset_pages(pages)
+            self._table[slot_i, :] = self.pool.null_page
+            self._table[slot_i, : len(pages)] = pages
+            s = _Slot(req.rid, req.t_submit, self.clock(), req.tokens,
+                      req.new_tokens, pages, 0, [], -1, [])
+            self._slots[slot_i] = s
+            self.stats["admissions"] += 1
+            self._prefill(slot_i, s)
+
+    def _emit(self, s: _Slot, row: np.ndarray) -> None:
+        tok = int(np.argmax(row))
+        s.emitted.append(tok)
+        s.last_tok = tok
+        if self.record_margins:
+            s.margins.append(_top2_margin(row))
+
+    def _prefill(self, slot_i: int, s: _Slot) -> None:
+        """Stream the prompt into the slot's pages in fixed-size chunks
+        (batch 1); the final chunk's logits give the first token."""
+        c, s_p = self.chunk, len(s.tokens)
+        table_row = self._table[slot_i: slot_i + 1]
+        logits = None
+        for c0 in range(0, s_p, c):
+            piece = s.tokens[c0: c0 + c]
+            buf = np.zeros((1, c), np.int32)
+            buf[0, : len(piece)] = piece
+            logits = self._dispatch(table_row, buf,
+                                    np.asarray([c0], np.int32),
+                                    np.asarray([len(piece)], np.int32))
+            self.stats["prefill_chunks"] += 1
+        s.pos = s_p
+        self._emit(s, logits[0, (s_p - 1) % c])
+        if s.new_tokens <= 1:
+            self._retire(slot_i)
+
+    def _decode_step(self) -> None:
+        """One step of the in-flight batch: every active slot inserts its
+        last token and emits the next; finished slots retire."""
+        active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        if not active:
+            return
+        toks = np.zeros((self.num_slots, 1), np.int32)
+        pos = np.zeros((self.num_slots,), np.int32)
+        valid = np.zeros((self.num_slots,), np.int32)
+        for i, s in active:
+            toks[i, 0] = s.last_tok
+            pos[i] = s.pos
+            valid[i] = 1
+        logits = self._dispatch(self._table, toks, pos, valid)
+        self.stats["steps"] += 1
+        self.stats["padded_rows"] += self.num_slots - len(active)
+        for i, s in active:
+            self._emit(s, logits[i, 0])
+            s.pos += 1
+            if len(s.emitted) >= s.new_tokens:
+                self._retire(i)
+
+    def _retire(self, slot_i: int) -> None:
+        s = self._slots[slot_i]
+        self._slots[slot_i] = None
+        self.pool.free(s.pages)
+        self._table[slot_i, :] = self.pool.null_page
+        self._results[s.rid] = Result(
+            s.rid, np.asarray(s.emitted[: s.new_tokens], np.int32),
+            s.t_submit, self.clock(), 1, 1, t_start=s.t_start,
+            margins=(np.asarray(s.margins[: s.new_tokens])
+                     if self.record_margins else None))
+        self.stats["retirements"] += 1
+        self.stats["requests"] += 1
+
+    def _reap_deadlines(self) -> None:
+        if self.deadline_s is None:
+            return
+        now = self.clock()
+        for i, s in enumerate(self._slots):
+            if s is not None and now - s.t_submit > self.deadline_s:
+                self._slots[i] = None
+                self.pool.free(s.pages)
+                self._table[i, :] = self.pool.null_page
+                self.dead_letters.append(dict(
+                    rid=s.rid, t_submit=s.t_submit,
+                    emitted=list(s.emitted), reason="deadline"))
+                self.stats["dead_lettered"] += 1
+
+    # -- engine loop ---------------------------------------------------------
+
+    def pump(self) -> None:
+        """One scheduler tick: admit into free slots, reap deadline
+        overruns, run one decode step."""
+        self._admit()
+        self._reap_deadlines()
+        self._decode_step()
+
+    def drain(self) -> list[Result]:
+        """Run the scheduler to idle; returns accumulated results by rid."""
+        while self._waiting or any(s is not None for s in self._slots):
+            self.pump()
+        out = [self._results[rid] for rid in sorted(self._results)]
+        self._results.clear()
+        return out
+
+    def serve(self, payloads) -> list[Result]:
+        """Closed loop: submit all, drain, results in order."""
+        for p in payloads:
+            while True:
+                try:
+                    self.submit(p)
+                    break
+                except QueueFull:
+                    self.pump()
+        return self.drain()
+
+
+# ---------------------------------------------------------------------------
+# Offered-load harness
+# ---------------------------------------------------------------------------
+
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
+
+
+def warm_engine(engine, payloads):
+    """Run the payloads once so a measurement sees a warm server (kernels
+    built and loaded, allocator caches filled).  Bucket engines serve every
+    padded bucket size 1, 2, 4, ..., max_batch."""
+    if not hasattr(engine, "batcher"):  # ContinuousLMEngine
+        engine.serve(list(payloads))
+        return engine
+    size = 1
+    while True:
+        engine.serve(payloads[: min(size, len(payloads))])
+        if size >= engine.batcher.max_batch:
+            return engine
+        size = min(size * 2, engine.batcher.max_batch)
+
+
+def run_offered_load(engine, payloads, rate_rps: float | None,
+                     clock: Callable[[], float] = time.perf_counter) -> dict:
+    """Drive the engine at a fixed offered rate (None = closed loop: all
+    requests available at once).  Latency runs submit -> harvest, a
+    behind-schedule arrival charged from its scheduled time."""
+    engine.stats.update(dispatches=0, requests=0, padded_rows=0)
+    t0 = clock()
+    for i, p in enumerate(payloads):
+        t_arrive = None
+        if rate_rps is not None:
+            t_arrive = t0 + i / rate_rps
+            while clock() < t_arrive:
+                engine.pump()
+                time.sleep(2e-4)
+        engine.submit_retry(p, t_submit=t_arrive)
+        engine.pump()
+    results = engine.drain()
+    wall = clock() - t0
+    lats = [r.latency_s for r in results]
+    waits = [r.queue_wait_s for r in results]
+    svc = [r.service_s for r in results]
+    return dict(
+        n_requests=len(results),
+        offered_rps=(round(rate_rps, 1) if rate_rps is not None else "inf"),
+        achieved_rps=round(len(results) / wall, 2),
+        p50_ms=round(_percentile(lats, 50) * 1e3, 2),
+        p99_ms=round(_percentile(lats, 99) * 1e3, 2),
+        queue_p50_ms=round(_percentile(waits, 50) * 1e3, 2),
+        queue_p99_ms=round(_percentile(waits, 99) * 1e3, 2),
+        service_p50_ms=round(_percentile(svc, 50) * 1e3, 2),
+        service_p99_ms=round(_percentile(svc, 99) * 1e3, 2),
+        dispatches=engine.stats["dispatches"],
+        mean_batch=round(engine.stats["requests"]
+                         / max(engine.stats["dispatches"], 1), 2),
+        padded_rows=engine.stats["padded_rows"],
+        wall_s=round(wall, 4),
+    )

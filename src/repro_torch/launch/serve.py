@@ -1,0 +1,290 @@
+"""LM serving entry point: batched prefill + greedy decode over a KV cache (port
+of ``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+      --quant w1a8 --batch 2 --prompt-len 16 --new-tokens 16 [--no-smoke]
+
+Runs on the card (``--device cuda``, the default) unless asked for the
+CPU.  Decode is a Python loop over tokens (the reference's one-trace
+``lax.scan``): each step runs the model once on the cache, which it
+updates in place.  ``--throughput`` drives the bucket engine
+(``launch/engine.ServeEngine`` + ``LMRunner``), ``--continuous`` the
+paged continuous-batching engine (``ContinuousLMEngine``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import SINGLE, get_config
+from repro_torch.core.quant import PAPER_CONFIGS
+from repro_torch.models import transformer as T
+
+# cache tensors with a sequence axis (transformer.init_cache's layout:
+# (layers, batch, slots, ...)), identified by key, never by size
+CACHE_SEQ_AXIS = {"k": 2, "v": 2, "pos": 2}
+
+
+def grow_cache(cache, prompt_len: int, slots: int):
+    """Grow a prefill cache to the decode horizon: new k/v slots are zero,
+    new ``pos`` entries -1 (empty).  Entries without ``pos`` pass
+    through."""
+    out = {}
+    for kind, entry in cache.items():
+        if not (isinstance(entry, dict) and "pos" in entry):
+            out[kind] = entry
+            continue
+        widened = dict(entry)
+        for key, axis in CACHE_SEQ_AXIS.items():
+            t = entry[key]
+            grow = slots - t.shape[axis]
+            if grow <= 0:
+                continue
+            pad = list(t.shape)
+            pad[axis] = grow
+            widened[key] = torch.cat(
+                [t, torch.full(pad, -1 if key == "pos" else 0, dtype=t.dtype,
+                               device=t.device)], dim=axis)
+        out[kind] = widened
+    return out
+
+
+def greedy_token(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Greedy next token over the real vocab only (the padded unembed tail
+    is never served): (B, S, Vp) -> (B, 1) int32."""
+    return torch.argmax(logits[:, -1:, :vocab], dim=-1).to(torch.int32)
+
+
+def top2_margin(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gap between the two largest real-vocab logits of the last position,
+    (B,): how far the greedy pick is from a tie."""
+    top = torch.topk(logits[:, -1, :vocab], 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def make_prefill(params, cfg, plan, qmode: str, reference: bool = False):
+    """prefill(tokens (B, S_p)) -> (logits, cache)."""
+    layers = T.unstack_layers(params, cfg)
+
+    def prefill(toks):
+        return T.prefill(params, cfg, plan, tokens=toks, qmode=qmode,
+                         layers=layers, reference=reference)
+
+    return prefill
+
+
+def make_decode_step(params, cfg, plan, qmode: str, reference: bool = False):
+    """step(cache, tok (B, 1), pos) -> (cache, next tok (B, 1), logits):
+    one ``decode_step`` and the real-vocab argmax."""
+    layers = T.unstack_layers(params, cfg)
+
+    def step(cache, tok, pos: int):
+        logits, cache = T.decode_step(params, cache, tok, pos, cfg, plan,
+                                      qmode=qmode, layers=layers,
+                                      reference=reference)
+        return cache, greedy_token(logits, cfg.vocab), logits
+
+    return step
+
+
+def make_generate(params, cfg, plan, qmode: str, prompt_len: int,
+                  new_tokens: int, reference: bool = False):
+    """gen(grown cache, first token (B, 1), margins=None) -> (B, S_d): a
+    Python loop of ``new_tokens - 1`` decode steps.  A ``margins`` list
+    receives each step's :func:`top2_margin`."""
+    step = make_decode_step(params, cfg, plan, qmode, reference)
+
+    def gen(cache, first_tok, margins=None):
+        toks, tok = [first_tok], first_tok
+        for i in range(new_tokens - 1):
+            cache, tok, logits = step(cache, tok, prompt_len + i)
+            toks.append(tok)
+            if margins is not None:
+                margins.append(top2_margin(logits, cfg.vocab))
+        return torch.cat(toks, dim=1)
+
+    return gen
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(prompts: torch.Tensor, new_tokens: int, vocab: int, prefill_fn,
+             generate_fn, margins=None) -> torch.Tensor:
+    """prefill -> grow -> first greedy token -> decode loop: (B, S_d)
+    tokens, not waited for.  ``margins`` (a list) receives the top-2
+    logit margin of every greedy pick, as (B,) tensors in order."""
+    s_p = prompts.shape[1]
+    logits, cache = prefill_fn(prompts)
+    cache = grow_cache(cache, s_p, s_p + new_tokens)
+    if margins is not None:
+        margins.append(top2_margin(logits, vocab))
+    return generate_fn(cache, greedy_token(logits, vocab), margins=margins)
+
+
+def serve_once(params, cfg, plan, prompts: torch.Tensor, new_tokens: int,
+               qmode: str, prefill_fn=None, generate_fn=None,
+               reference: bool = False, margins=None):
+    """One batched request (:func:`generate`), waited for.  Returns
+    (tokens (B, S_d), wall seconds)."""
+    prefill_fn = prefill_fn or make_prefill(params, cfg, plan, qmode,
+                                            reference)
+    generate_fn = generate_fn or make_generate(
+        params, cfg, plan, qmode, prompts.shape[1], new_tokens, reference)
+    t0 = time.perf_counter()
+    gen = generate(prompts, new_tokens, cfg.vocab, prefill_fn, generate_fn,
+                   margins)
+    _sync(gen.device)
+    return gen, time.perf_counter() - t0
+
+
+def _prompts(n: int, length: int, vocab: int) -> list:
+    return [np.random.RandomState(i).randint(0, vocab, size=(length,))
+            .astype(np.int32) for i in range(n)]
+
+
+def run_throughput(params, cfg, qmode: str, args) -> None:
+    """``--throughput``: the bucket engine, sequential (max_batch=1) vs
+    batched, closed loop, then an offered-rate sweep."""
+    import json
+
+    from repro_torch.launch.engine import (LMRunner, ServeEngine,
+                                           run_offered_load, warm_engine)
+
+    prompts = _prompts(args.requests, args.prompt_len, cfg.vocab)
+
+    def mk(max_batch):
+        return ServeEngine(
+            LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode),
+            max_batch=max_batch,
+            flush_deadline_s=args.flush_deadline_ms / 1e3)
+
+    seq = run_offered_load(warm_engine(mk(1), prompts), prompts, None)
+    eng = warm_engine(mk(args.batch), prompts)
+    bat = run_offered_load(eng, prompts, None)
+    print(f"arch={cfg.name} device={args.device} requests={args.requests} "
+          f"prompt_len={args.prompt_len} new_tokens={args.new_tokens}")
+    print(f"sequential: {seq['achieved_rps']:.1f} req/s "
+          f"p50={seq['p50_ms']}ms p99={seq['p99_ms']}ms")
+    print(f"batch={args.batch}: {bat['achieved_rps']:.1f} req/s "
+          f"p50={bat['p50_ms']}ms p99={bat['p99_ms']}ms "
+          f"({bat['achieved_rps'] / max(seq['achieved_rps'], 1e-9):.2f}x)")
+    for mult in (0.5, 1.0, 2.0, 4.0):
+        row = run_offered_load(eng, prompts,
+                               rate_rps=mult * seq["achieved_rps"])
+        print(f"offered {row['offered_rps']:>8} req/s: {json.dumps(row)}")
+
+
+def run_continuous(params, cfg, qmode: str, args) -> None:
+    """``--continuous``: the paged continuous-batching engine against the
+    bucket engine at the same capacity, on a mixed prompt/horizon set."""
+    import json
+
+    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
+                                           ServeEngine, run_offered_load,
+                                           warm_engine)
+
+    rng = np.random.RandomState(0)
+    gens = (max(args.new_tokens // 2, 1), args.new_tokens,
+            args.new_tokens * 2)
+    payloads = [
+        (rng.randint(0, cfg.vocab,
+                     size=(int(rng.choice((args.prompt_len // 2 or 1,
+                                           args.prompt_len),)),))
+         .astype(np.int32), int(rng.choice(gens)))
+        for _ in range(args.requests)]
+    bucket = ServeEngine(
+        LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode),
+        max_batch=args.batch, flush_deadline_s=args.flush_deadline_ms / 1e3)
+    cont = ContinuousLMEngine(
+        params, cfg, num_slots=args.slots, page_size=args.page_size,
+        num_pages=args.pages, new_tokens=args.new_tokens,
+        max_seq=args.prompt_len + 2 * args.new_tokens, qmode=qmode)
+    rb = run_offered_load(warm_engine(bucket, payloads), payloads, None)
+    rc = run_offered_load(warm_engine(cont, payloads), payloads, None)
+    print(f"arch={cfg.name} device={args.device} requests={args.requests} "
+          f"mixed prompts/horizons slots={args.slots} "
+          f"pages={args.pages}x{args.page_size}")
+    print(f"bucket    : {json.dumps(rb)}")
+    print(f"continuous: {json.dumps(rc)} "
+          f"({rc['achieved_rps'] / max(rb['achieved_rps'], 1e-9):.2f}x)")
+    print(f"programs={sorted(cont.program_shapes)} pool={cont.pool.stats()}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (the card by default; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--quant", default=None, choices=list(PAPER_CONFIGS))
+    ap.add_argument("--plan-cache", default=None, metavar="PATH")
+    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--throughput", action="store_true")
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--flush-deadline-ms", type=float, default=2.0)
+    ap.add_argument("--chaos-mtbf", type=float, default=None, metavar="STEPS")
+    args = ap.parse_args(argv)
+    for flag in ("plan_cache", "autotune", "chaos_mtbf"):
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not yet ported")
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch.cuda.is_available() is "
+                           "false (pass --device cpu for the plain versions)")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    if args.quant:
+        cfg = dataclasses.replace(cfg, quant=PAPER_CONFIGS[args.quant])
+    qmode = "serve" if args.quant and args.quant != "w32a32" else "train"
+    if qmode != "serve":
+        raise NotImplementedError("only the quantized serve path is ported "
+                                  "(pass --quant w1a8, w1a4, ...)")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    from repro_torch.models.layers import prequantize_params
+
+    params = prequantize_params(T.init_lm(gen, cfg, SINGLE, device), cfg)
+    if args.continuous:
+        return run_continuous(params, cfg, qmode, args)
+    if args.throughput:
+        return run_throughput(params, cfg, qmode, args)
+    B, S_p, S_d = args.batch, args.prompt_len, args.new_tokens
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(B, S_p)).astype(np.int32)).to(device)
+    prefill_fn = make_prefill(params, cfg, SINGLE, qmode)
+    generate_fn = make_generate(params, cfg, SINGLE, qmode, S_p, S_d)
+    out, dt_cold = serve_once(params, cfg, SINGLE, prompts, S_d, qmode,
+                              prefill_fn, generate_fn)
+    _, dt_warm = serve_once(params, cfg, SINGLE, prompts, S_d, qmode,
+                            prefill_fn, generate_fn)
+    print(f"arch={cfg.name} quant={args.quant} device={device} "
+          f"engine={qmode}")
+    print(f"generated {B}x{S_d} tokens: cold {dt_cold:.2f}s "
+          f"({B * S_d / dt_cold:.1f} tok/s incl. kernel builds), "
+          f"warm {dt_warm * 1e3:.1f}ms ({B * S_d / dt_warm:.1f} tok/s)")
+    for b in range(min(B, 2)):
+        print(f"  sample[{b}]: {out[b][:12].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

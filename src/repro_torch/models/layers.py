@@ -1,0 +1,362 @@
+"""Transformer layers of the dense LM serve path (port of the serve half of
+``repro/models/layers.py``).
+
+Conventions follow the reference: activations ``(B, S, d)``, attention
+heads ``(B, S, H, hd)``, params as nested dicts of tensors.  Every
+projection is a :func:`qdense`: prequantized ``{"q", "s", "z"}`` weights
+run the signed level GEMM; float weights are a plain matmul on fp configs.
+
+Attention engines: ``full`` (materialized logits, plain PyTorch — the
+reference computes it in XLA), ``flash`` (``kernels.attn_flash.attn_flash``,
+the CUDA kernel for contiguous quantized prefill) and ``paged``
+(``kernels.attn_flash.attn_paged``, the CUDA kernel for the page-table
+cache).  ``reference=True`` runs the kernels' plain versions on any
+device.  Caches are updated in place (decode writes one slot of the
+contiguous cache; a paged step writes its valid rows into the pools),
+where the reference returns new arrays: the port holds one copy of the KV
+state.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.and_accum import quant_dense_forward_signed_pre
+from repro_torch.core.quant import QuantConfig, weight_levels
+
+NEG_INF = -1e30
+PREQUANT_KEYS = {"wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out"}
+
+
+# ---------------------------------------------------------------------------
+# Quantized dense
+# ---------------------------------------------------------------------------
+
+def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
+           role: str = "mid") -> torch.Tensor:
+    """Dense layer on the serve path.  ``w`` prequantized
+    (``{"q": (K, N) int8 levels, "s": 0-d, "z": 0-d}``) runs the signed
+    level GEMM with the config's activation-scale mode; a float ``w`` is a
+    plain matmul on fp configs and on first/last layers kept fp."""
+    if isinstance(w, dict):
+        _signed_engine(quant)
+        a_scale = "row" if quant.act_scale_mode == "row" else None
+        return quant_dense_forward_signed_pre(
+            x, w["q"], w["s"], w["z"], quant.a_bits, quant.w_bits,
+            a_scale=a_scale)
+    if quant.engine == "fp" or quant.w_bits >= 32 or (
+            role in ("first", "last") and quant.first_last_fp):
+        return x @ w.to(x.dtype)
+    raise ValueError("quantized serve takes prequantized weights: call "
+                     "prequantize_params first (the train-mode fake-quant "
+                     "path is not ported)")
+
+
+def _signed_engine(quant: QuantConfig) -> str:
+    """Level-GEMM engine of the signed serve path.  The reference maps every
+    dispatcher pick that is not a plain level engine down to ``int8``
+    (``layers.py:82-99``); the port has that one engine
+    (``core.and_accum.centred_gemm_int``)."""
+    if quant.engine in ("planes", "packed", "f32dot"):
+        raise ValueError(f"signed level engine {quant.engine!r} is not yet "
+                         f"ported (ported: 'int8')")
+    return "int8"
+
+
+def prequantize_params(params, cfg):
+    """Serve-time transform: every projection weight of the stacked block
+    params, (L, K, N) float, becomes ``{"q": (L, K, N) int8 levels,
+    "s": (L,) float32, "z": (L,) float32}`` (levels per layer)."""
+    out = dict(params)
+    blocks = {}
+    for kind, tree in params["blocks"].items():
+        new = {}
+        for sub, sv in tree.items():
+            if isinstance(sv, dict):
+                new[sub] = {k: (_quantize_stacked(v, cfg.quant.w_bits)
+                                if k in PREQUANT_KEYS else v)
+                            for k, v in sv.items()}
+            else:
+                new[sub] = sv
+        blocks[kind] = new
+    out["blocks"] = blocks
+    return out
+
+
+def _quantize_stacked(w: torch.Tensor, bits: int) -> dict:
+    if bits > 7:
+        raise ValueError(f"int8 weight levels need w_bits <= 7, got {bits}")
+    qs, ss, zs = [], [], []
+    for wl in w:
+        lv, s, z = weight_levels(wl, bits)
+        qs.append(lv.to(torch.int8))
+        ss.append(s.float())
+        zs.append(z.float())
+    return {"q": torch.stack(qs), "s": torch.stack(ss), "z": torch.stack(zs)}
+
+
+# ---------------------------------------------------------------------------
+# Norms & RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, hd: int, theta: float):
+    """(cos, sin) of the rotary angles, (..., S, 1, hd/2) float32: one pair
+    serves every layer of a step."""
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs          # (..., S, half)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         tables=None) -> torch.Tensor:
+    """x (..., S, H, hd), positions (..., S) or (S,) -> rotated x;
+    ``tables`` are :func:`rope_tables` of the same positions."""
+    half = x.shape[-1] // 2
+    cos, sin = (tables if tables is not None
+                else rope_tables(positions, x.shape[-1], theta))
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _mask(iq: torch.Tensor, jk: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """iq (Sq,), jk (Skv,) absolute positions; jk < 0 marks invalid slots."""
+    m = (jk[None, :] >= 0).expand(iq.shape[0], -1)
+    if causal:
+        m = m & (jk[None, :] <= iq[:, None])
+    if window is not None:
+        m = m & (jk[None, :] > (iq[:, None] - window))
+    return m
+
+
+def expand_kv(k, v, n_q_real: int, n_q_padded: int):
+    """GQA: query head j attends KV head ``min(j // g, Hkv - 1)``."""
+    hkv = k.shape[2]
+    if hkv == n_q_padded:
+        return k, v
+    g = max(n_q_real // hkv, 1)
+    idx = torch.clamp(torch.arange(n_q_padded, device=k.device) // g,
+                      max=hkv - 1)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attn_full(q, k, v, *, causal: bool, window: Optional[int], q_pos,
+              kv_pos) -> torch.Tensor:
+    """Materialized-logits attention.  q (B,Sq,H,hd); k, v (B,Skv,H,hd)
+    (KV expanded for GQA).  The logits are float32 (bf16 x bf16 products
+    are exact in float32, as the reference's ``preferred_element_type``
+    keeps them); the softmax weights are cast to v's dtype for P @ V."""
+    hd = q.shape[-1]
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    m = _mask(q_pos, kv_pos, causal, window)
+    logits = torch.where(m[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, v)
+
+
+def attn_chunked(*args, **kwargs):
+    raise NotImplementedError("attn_chunked is not yet ported")
+
+
+def attn_banded(*args, **kwargs):
+    raise NotImplementedError("attn_banded is not yet ported")
+
+
+def moe_fwd(*args, **kwargs):
+    raise NotImplementedError("moe_fwd (the MoE FFN) is not yet ported")
+
+
+def _head_mask(cfg, plan, dtype, device):
+    hp = plan.padded_heads(cfg.n_heads)
+    if hp == cfg.n_heads:
+        return None
+    return (torch.arange(hp, device=device) < cfg.n_heads).to(dtype)
+
+
+def attn_quantized(quant: QuantConfig, qmode: str) -> bool:
+    """Is this the integer-levels serve path (quantized-flash eligible)?"""
+    return (qmode == "serve" and quant.engine != "fp"
+            and quant.w_bits < 32 and quant.a_bits <= 8)
+
+
+def resolve_attn_engine(cfg, *, seq_q: int, seq_kv: int, heads: int,
+                        causal: bool, window: Optional[int],
+                        qmode: str = "serve") -> str:
+    from repro_torch.kernels.ops import AttnShape, select_attn_engine
+
+    return select_attn_engine(AttnShape(
+        seq_q=seq_q, seq_kv=seq_kv, heads=heads, head_dim=cfg.hd,
+        causal=bool(causal), window=window,
+        quantized=attn_quantized(cfg.quant, qmode),
+        banded_ok=bool(cfg.banded_attn)))
+
+
+def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
+                  cache_k=None, cache_v=None, cache_pos=None,
+                  cache_table=None, valid_len=None,
+                  window: Optional[int] = None, causal: Optional[bool] = None,
+                  engine: Optional[str] = None, qmode: str = "serve",
+                  reference: bool = False, rope_cs=None, rows=None):
+    """Returns ``(out, (k, v, pos))``.
+
+    ``mode``: ``'prefill'`` (contiguous positions from ``pos_offset``, the
+    new cache entries returned), ``'decode'`` (S == 1 at the Python int
+    ``pos_offset``, written into the cache slot in place; always the
+    ``full`` engine) or ``'paged'`` (the continuous-batching path: the
+    cache arguments are the page pools, ``cache_table`` the (B, P) page
+    table, ``pos_offset``/``valid_len`` per-slot (B,) int tensors).
+    ``rope_cs`` (:func:`rope_tables`) and, for ``'paged'``, ``rows``
+    (:func:`paged_rows`) depend only on the step's positions: the layer
+    loop computes them once per step."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    hp = plan.padded_heads(cfg.n_heads)
+    hkv = cfg.n_kv_heads
+    causal = cfg.causal if causal is None else causal
+    h = rms_norm(x, p["ln"])
+    q = qdense(h, p["wq"], cfg.quant).reshape(B, S, hp, hd)
+    k = qdense(h, p["wk"], cfg.quant).reshape(B, S, hkv, hd)
+    v = qdense(h, p["wv"], cfg.quant).reshape(B, S, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if mode == "paged":
+        if rows is None:
+            rows = paged_rows(cache_table, pos_offset, valid_len, S,
+                              cache_pos.shape[1], cache_pos.shape[0] - 1)
+        out, new_cache = _paged_attn_fwd(
+            q, k, v, cfg, rows, cache_k, cache_v, cache_pos, cache_table,
+            causal=causal, window=window, qmode=qmode, reference=reference,
+            rope_cs=rope_cs)
+    else:
+        q_pos = pos_offset + torch.arange(S, device=x.device)
+        k_roped = rope(k, q_pos, cfg.rope_theta, rope_cs)
+        q = rope(q, q_pos, cfg.rope_theta, rope_cs)
+        if mode == "prefill":
+            kv, vv, kv_pos = k_roped, v, q_pos
+            new_cache = (k_roped, v, q_pos[None].expand(B, S).to(torch.int32))
+        elif mode == "decode":
+            slots = cache_k.shape[1]
+            at = pos_offset % slots if window is not None else pos_offset
+            cache_k[:, at:at + 1] = k_roped
+            cache_v[:, at:at + 1] = v
+            cache_pos[:, at] = pos_offset
+            kv, vv, kv_pos = cache_k, cache_v, cache_pos[0]
+            new_cache = (cache_k, cache_v, cache_pos)
+        else:
+            raise ValueError(f"attention mode {mode!r} is not served "
+                             f"(prefill | decode | paged)")
+        kv, vv = expand_kv(kv, vv, cfg.n_heads, hp)
+        if mode == "decode":
+            engine = "full"
+        elif engine is None:
+            engine = resolve_attn_engine(
+                cfg, seq_q=S, seq_kv=kv.shape[1], heads=hp, causal=causal,
+                window=window, qmode=qmode)
+        if engine == "flash" and S == kv.shape[1]:
+            from repro_torch.kernels.attn_flash import attn_flash
+
+            bits = min(cfg.quant.a_bits, 8)
+            out = attn_flash(q, kv, vv, causal=bool(causal), window=window,
+                             q_bits=bits, k_bits=bits,
+                             reference=reference).to(q.dtype)
+        elif engine in ("full", "flash"):
+            out = attn_full(q, kv, vv, causal=causal, window=window,
+                            q_pos=q_pos, kv_pos=kv_pos)
+        else:
+            raise NotImplementedError(f"attention engine {engine!r} is not "
+                                      f"yet ported")
+    hm = _head_mask(cfg, plan, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    out = qdense(out.reshape(B, S, hp * hd), p["wo"], cfg.quant)
+    return out, new_cache
+
+
+def paged_rows(table, pos_offset, valid_len, S: int, ps: int,
+               null: int) -> dict:
+    """Where one paged step's rows go: ``q_pos`` (B, S) positions, ``ok``
+    (the valid rows: within ``valid_len`` and the table), and each row's
+    write target ``(page, off)``.  The reference scatters the invalid rows
+    to an out-of-bounds index with ``mode='drop'``; PyTorch has no drop
+    mode, so here every invalid row targets slot 0 of the null page (and
+    writes back that slot's own values, see :func:`_paged_attn_fwd`)."""
+    P = table.shape[1]
+    ar = torch.arange(S, dtype=torch.int32, device=table.device)
+    q_pos = pos_offset.to(torch.int32)[:, None] + ar[None]
+    ok = (ar[None] < valid_len[:, None]) & (q_pos >= 0) & (q_pos < P * ps)
+    page = torch.gather(table, 1, torch.clamp(q_pos // ps, 0, P - 1).long())
+    return dict(q_pos=q_pos, ok=ok, page=torch.where(ok, page, null).long(),
+                off=torch.where(ok, q_pos % ps, 0).long(),
+                q_pos_masked=torch.where(ok, q_pos, -1))
+
+
+def _paged_attn_fwd(q, k, v, cfg, rows, pool_k, pool_v, ppos, table, *,
+                    causal: bool, window: Optional[int], qmode: str,
+                    reference: bool, rope_cs=None):
+    """One paged step: write this step's valid K/V rows into the page pools
+    (in place), then attend each slot over its own page-table row.  The
+    invalid rows write the null page's own slot-0 values back, so the
+    write leaves it as it was and no valid row shares that target."""
+    from repro_torch.kernels.attn_flash import attn_paged
+    from repro_torch.kernels.ops import AttnShape, select_attn_engine
+
+    hd = k.shape[3]
+    ps = ppos.shape[1]
+    null = ppos.shape[0] - 1
+    q_pos, ok, page, off = rows["q_pos"], rows["ok"], rows["page"], rows["off"]
+    k_roped = rope(k, q_pos, cfg.rope_theta, rope_cs)
+    q = rope(q, q_pos, cfg.rope_theta, rope_cs)
+    okx = ok[..., None, None]
+    pool_k.index_put_((page, off), torch.where(okx, k_roped, pool_k[null, 0]))
+    pool_v.index_put_((page, off), torch.where(okx, v, pool_v[null, 0]))
+    ppos.index_put_((page, off), torch.where(ok, q_pos, ppos[null, 0]))
+
+    attn = AttnShape(
+        seq_q=q.shape[1], seq_kv=table.shape[1] * ps, heads=q.shape[2],
+        head_dim=hd, causal=bool(causal), window=window,
+        quantized=attn_quantized(cfg.quant, qmode), page_size=ps)
+    eng = select_attn_engine(attn)
+    if eng != "paged":
+        raise ValueError(f"paged attention geometry resolved to engine "
+                         f"{eng!r}")
+    out = attn_paged(q, pool_k, pool_v, ppos, table, rows["q_pos_masked"],
+                     causal=bool(causal), window=window,
+                     quantized=attn.quantized,
+                     bits=min(cfg.quant.a_bits, 8), n_q_heads=cfg.n_heads,
+                     reference=reference)
+    return out.to(q.dtype), (pool_k, pool_v, ppos)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeLU)
+# ---------------------------------------------------------------------------
+
+def mlp_fwd(p, x, cfg):
+    h = rms_norm(x, p["ln"])
+    up = qdense(h, p["w_in"], cfg.quant)
+    if cfg.act == "swiglu":
+        gate = qdense(h, p["w_gate"], cfg.quant)
+        # silu as the reference writes it (x * sigmoid(x)): two roundings
+        # in a bf16 compute dtype, not torch's fused one
+        up = gate * torch.sigmoid(gate) * up
+    else:
+        up = torch.nn.functional.gelu(up, approximate="tanh")
+    return qdense(up, p["w_out"], cfg.quant)

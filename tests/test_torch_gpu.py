@@ -8,7 +8,10 @@ own plain versions, which the other files hold against the reference.
 Run on the card with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Kernel and plain version must agree bit for bit, full epilogue included:
-both round ``s*acc`` and ``t*rowsum`` separately in float32.
+both round ``s*acc`` and ``t*rowsum`` separately in float32.  The
+attention kernels agree with their plain versions within 1e-5 x max|v| in
+float32 (the same integer logits; exp and the sums run in another order),
+plus one output rounding in bfloat16.
 """
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from repro_torch.kernels.conv_implicit import (conv_implicit,  # noqa: E402
 from repro_torch.kernels.fused_qgemm import (fused_qgemm,  # noqa: E402
                                              fused_qgemm_plain)
 from repro_torch.models.cnn import init_cnn, svhn_cnn_spec  # noqa: E402
+from repro_torch.kernels import attn_flash as A  # noqa: E402
 
 # (w_bits, a_bits): the paper's W1A1, W1A4, W1A8 and W2A2
 BITS = [(1, 1), (1, 4), (1, 8), (2, 2)]
@@ -96,7 +100,8 @@ def test_wrappers_count_launches_only_for_the_kernel(cuda_device):
                 w_bits=1, a_is_levels=True)
     conv_implicit_plain(x, w, 1.0, 0.0, kh=3, kw=3, a_bits=4, w_bits=1)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES == {"fused_qgemm": 1, "conv_implicit": 1}
+    assert _lib.LAUNCHES == {"fused_qgemm": 1, "conv_implicit": 1,
+                             "attn_flash": 0, "attn_paged": 0}
 
 
 @pytest.mark.gpu
@@ -113,9 +118,146 @@ def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
     want = {"fused_qgemm": engines.count("fused"),
             "conv_implicit": engines.count("implicit")}
     assert want == {"fused_qgemm": 5, "conv_implicit": 1}
+    want.update(attn_flash=0, attn_paged=0)
     _lib.reset_launches()
     got = compiled.forward(x)
     assert _lib.LAUNCHES == want
     ref = compiled.forward(x, reference=True)
     assert _lib.LAUNCHES == want
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+def _attn_tol(v, dtype):
+    vmax = float(v.float().abs().max())
+    return vmax * (1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd,causal,window", [
+    (2, 300, 3, 64, True, None), (1, 128, 2, 32, False, None),
+    (1, 200, 2, 128, True, None), (2, 256, 15, 64, True, 100)])
+def test_attn_flash_kernel_matches_plain(cuda_device, dtype, b, s, h, hd,
+                                         causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    got = A.attn_flash(q, k, v, causal=causal, window=window)
+    ref = A.attn_flash(q, k, v, causal=causal, window=window, reference=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _attn_tol(v, dtype)
+
+
+def _paged_case(device, gen, *, b, s, hp, hkv, hd, ps, np_, p, dtype):
+    """Stale pools, ragged tables padded with the null page, ppos written
+    for each slot's live positions, slot 0's last row padding (-1)."""
+    pk = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=device)
+    pv = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=device)
+    pk[np_], pv[np_] = 0.0, 0.0
+    ppos = torch.full((np_ + 1, ps), -1, dtype=torch.int32, device=device)
+    table = torch.full((b, p), np_, dtype=torch.int32, device=device)
+    q_pos = torch.full((b, s), -1, dtype=torch.int32, device=device)
+    order = torch.randperm(np_, generator=torch.Generator().manual_seed(b))
+    used = 0
+    for i in range(b):
+        n_tok = s + (7 * i + 3) % (p * ps - s)
+        own = order[used: used + -(-n_tok // ps)].tolist()
+        used += len(own)
+        table[i, :len(own)] = torch.tensor(own, dtype=torch.int32)
+        for t in range(n_tok):
+            ppos[own[t // ps], t % ps] = t
+        q_pos[i] = torch.arange(n_tok - s, n_tok, dtype=torch.int32)
+    q_pos[0, -1] = -1
+    q = torch.randn((b, s, hp, hd), generator=gen, device=device)
+    return [x.to(dtype) for x in (q, pk, pv)] + [ppos, table, q_pos]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hp,hkv,hd,window", [
+    (8, 1, 15, 5, 64, None), (1, 16, 15, 5, 64, None),
+    (3, 4, 3, 1, 32, None), (4, 2, 8, 2, 128, 9)])
+def test_attn_paged_kernel_matches_plain(cuda_device, dtype, b, s, hp, hkv,
+                                         hd, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * 100 + s)
+    q, pk, pv, ppos, table, q_pos = _paged_case(
+        cuda_device, gen, b=b, s=s, hp=hp, hkv=hkv, hd=hd, ps=16,
+        np_=8 * b + 4, p=6, dtype=dtype)
+    kw = dict(causal=True, window=window, quantized=True, n_q_heads=hp)
+    got = A.attn_paged(q, pk, pv, ppos, table, q_pos, **kw)
+    ref = A.attn_paged(q, pk, pv, ppos, table, q_pos, reference=True, **kw)
+    torch.cuda.synchronize()
+    valid = q_pos >= 0
+    tol = _attn_tol(pv, dtype)
+    assert float((got[valid].float() - ref[valid].float()).abs().max()) <= tol
+    # padding rows: both average V over the gathered slots
+    assert float((got[~valid].float() - ref[~valid].float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_count_launches_only_for_the_kernel(cuda_device):
+    q = torch.randn((1, 64, 2, 32), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pq, pk, pv, ppos, table, q_pos = _paged_case(
+        cuda_device, gen, b=2, s=1, hp=2, hkv=1, hd=32, ps=16, np_=8, p=2,
+        dtype=torch.float32)
+    _lib.reset_launches()
+    A.attn_flash(q, q, q)
+    A.attn_flash(q, q, q, reference=True)
+    A.attn_paged(pq, pk, pv, ppos, table, q_pos, quantized=True)
+    A.attn_paged(pq, pk, pv, ppos, table, q_pos, quantized=True,
+                 reference=True)
+    A.attn_paged(pq, pk, pv, ppos, table, q_pos, quantized=False)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["attn_flash"] == 1
+    assert _lib.LAUNCHES["attn_paged"] == 1
+
+
+@pytest.mark.gpu
+def test_lm_smoke_serving_on_card_equals_plain_versions(cuda_device,
+                                                        monkeypatch):
+    """Both LM entry points on the card (a 2-layer model with SmolLM's
+    head geometry and projection widths cuBLASLt's int8 product serves,
+    float32): the flash prefill (threshold lowered to the prompt) and the
+    continuous engine give the plain versions' greedy tokens and launch
+    their kernels once per layer per dispatch."""
+    import dataclasses
+
+    from repro_torch.api import targets
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.launch.engine import ContinuousLMEngine
+    from repro_torch.launch.serve import serve_once
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import prequantize_params
+
+    cfg = dataclasses.replace(get_config("smollm-360m").smoke(
+        n_layers=2, d_model=320, n_heads=15, n_kv_heads=5, d_ff=640, vocab=64,
+        head_dim=64), quant=PAPER_CONFIGS["w1a8"])
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = prequantize_params(T.init_lm(gen, cfg, SINGLE), cfg)
+    prompts = torch.randint(0, 64, (2, 32), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+    monkeypatch.setattr(targets, "ATTN_FLASH_SEQ_MIN", 32)
+    _lib.reset_launches()
+    got, _ = serve_once(params, cfg, SINGLE, prompts, 4, "serve")
+    assert _lib.LAUNCHES["attn_flash"] == cfg.n_layers
+    ref, _ = serve_once(params, cfg, SINGLE, prompts, 4, "serve",
+                        reference=True)
+    assert torch.equal(got, ref)
+    payloads = [(np.arange(1, 1 + n, dtype=np.int32) % 64, h)
+                for n, h in ((5, 3), (9, 4), (3, 2))]
+    _lib.reset_launches()
+    eng = ContinuousLMEngine(params, cfg, num_slots=2, page_size=4,
+                             num_pages=16, max_seq=16)
+    res = eng.serve(payloads)
+    assert _lib.LAUNCHES["attn_paged"] == cfg.n_layers * eng.stats["dispatches"]
+    ref = ContinuousLMEngine(params, cfg, num_slots=2, page_size=4,
+                             num_pages=16, max_seq=16,
+                             reference=True).serve(payloads)
+    for a, b in zip(res, ref):
+        np.testing.assert_array_equal(a.value, b.value)
