@@ -15,6 +15,12 @@ Phases, each of which makes the script exit nonzero when it fails:
    card (pinned-scale accumulators and full-epilogue outputs exactly
    equal) and time kernel, plain version and a library yardstick beside
    the card's bound;
+   the bit-plane kernels (``quantize_pack`` float-in and levels-in,
+   ``bitgemm_packed`` at W1A1 and W1A4, ``int8_matmul`` on the W1A8
+   nibble groups and on one signed case) at svhn's six quantized layers
+   and AlexNet's (fc5/fc6 for ``int8_matmul``) at batch 8, held to their
+   plain versions with ``torch.equal`` and timed beside their bound,
+   their plain version and ``torch._int_mm`` on the levels;
    the LM kernels (``attn_flash`` at the bucket prefill's shape and one
    window shape, ``attn_paged`` at a decode step and a prefill chunk) are
    held against their plain versions within 1e-5 x max|v| on float32
@@ -27,6 +33,20 @@ Phases, each of which makes the script exit nonzero when it fails:
    a closed loop of 32 outstanding requests for a 4 s window, the
    serving measurement; full AlexNet runs one 224x224 W1A8 forward at
    batch 8 with the same checks; the launch counts are checked;
+4b. the faithful and int8 engines' main path: the same svhn through
+   ``build -> compile(target="cuda") -> serve(max_batch=8)`` with
+   ``engine="faithful"`` at W1A1 and W1A4 and ``engine="int8"`` at W1A8
+   answers the 16-request set three times; its logits equal the plain
+   versions' and the default engines' (fused/implicit) exactly, alone vs
+   batched within the tolerance; 4 s serving windows for faithful W1A1
+   and int8 W1A8 (and, outside the counted run, default W1A1); AlexNet
+   W1A1 faithful at batch 8 (fc5's output and the logits equal the
+   default engines' exactly); the launch counts are checked (6
+   ``quantize_pack`` + 6 ``bitgemm_packed`` per faithful dispatch, 12
+   ``int8_matmul`` per int8 dispatch, no ``fused_qgemm`` or
+   ``conv_implicit``); then ``quant_dense_kernel`` on AlexNet fc5's shape,
+   both paths equal to each other and to the plain versions, with 1
+   ``quantize_pack`` and 1 ``bitgemm_packed`` or ``int8_matmul`` launch;
 5. LM main path: full-width SmolLM-360M W1A8 (random weights, seed 2)
    serves two 2048-token prompts x 16 new tokens through ``ServeEngine``
    + ``LMRunner`` (flash prefill) and 16 mixed requests through
@@ -66,6 +86,16 @@ PEAK_FP32_FLOPS = 67e12    # non-tensor-core float32
 # kernels against their plain versions run the same float ops at the same
 # batch and are held exactly.
 LOGIT_TOL_FRAC = 0.1
+# sm_90 issues 16 32-bit population counts per SM per clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput): with one AND and
+# one add beside each, the floor of the AND + popcount dataflow on the
+# CUDA cores
+POPC_PER_SM_CLOCK = 16
+# the bit-plane engines' main path: (bit widths, engine), and the ones
+# whose 4 s serving window is measured
+BITPLANE_PATHS = (("w1a1", "faithful"), ("w1a4", "faithful"),
+                  ("w1a8", "int8"))
+BITPLANE_WINDOWS = ("w1a1 faithful", "w1a8 int8")
 # ~1 ms of device time at H100 clocks: longer than the host needs to
 # enqueue one launch of a kernel or of its plain version
 SLEEP_CYCLES = 2_000_000
@@ -256,6 +286,155 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                         lambda: F.conv2d(xf, wf, stride=lp.stride), 30, flush)
             summary[name].append(row)
             print("KERNEL", json.dumps(row), flush=True)
+    return summary
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def _int_mm_yardstick(a8: torch.Tensor, w8: torch.Tensor, flush) -> dict:
+    """``torch._int_mm`` on the same int8 operands (rows padded with zeros
+    to 32: cuBLASLt takes more than 16): the same int32 product, a
+    yardstick the port never calls."""
+    m = a8.shape[0]
+    rows = max(m, 32)
+    if rows > m:
+        a8 = torch.cat([a8, a8.new_zeros((rows - m, a8.shape[1]))])
+    return dict(library_call=f"torch._int_mm ({rows} rows)",
+                library_ms=time_ms(lambda: torch._int_mm(a8, w8), 30, flush))
+
+
+def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
+    """quantize_pack, bitgemm_packed and int8_matmul at the shapes the
+    faithful and int8 engines give them on the main path (batch 8:
+    svhn's six quantized layers, and AlexNet's six for the faithful
+    kernels, fc5/fc6 for int8_matmul), each held against its plain
+    version with ``torch.equal`` and timed beside its bound, its plain
+    version and ``torch._int_mm`` on the levels."""
+    from repro_torch.core.and_accum import _nibble_split, level_gemm_exact
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitgemm import (bitgemm_packed,
+                                             bitgemm_packed_plain)
+    from repro_torch.kernels.bitgemm_mxu import int8_matmul, int8_matmul_plain
+    from repro_torch.kernels.quantpack import (quantize_pack,
+                                               quantize_pack_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    popc_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * POPC_PER_SM_CLOCK * sm_clock_hz())
+    summary = {"quantize_pack": [], "bitgemm_packed": [], "int8_matmul": []}
+
+    def err(got, ref):
+        return float((got.double() - ref.double()).abs().max())
+
+    for model, lp in kernel_shapes():
+        m, k, n = 8 * lp.out_h * lp.out_w, lp.k, lp.cout
+        kwords = -(-k // 32)
+        tag = dict(model=model, layer=lp.name, shape=[m, k, n])
+        w_lv = torch.randint(0, 2, (k, n), generator=gen, dtype=torch.uint8,
+                             device=dev)
+        w_planes = ops.pack_weight_planes(w_lv, 1)
+        for a_bits in ((1, 4) if model == "svhn" else (1,)):
+            a_lv = torch.randint(0, 1 << a_bits, (m, k), generator=gen,
+                                 dtype=torch.uint8, device=dev)
+            a_planes = quantize_pack_plain(a_lv, a_bits)[1]
+            kw = dict(a_bits=a_bits, w_bits=1)
+            got = bitgemm_packed(a_planes, w_planes, **kw)
+            ref = bitgemm_packed_plain(a_planes, w_planes, **kw)
+            torch.cuda.synchronize()
+            name = f"bitgemm_packed {model} {lp.name} a{a_bits}"
+            check(torch.equal(got, ref), f"{name}: differs from the plain "
+                                         f"version (max abs {err(got, ref)})")
+            check(torch.equal(ref.double(), level_gemm_exact(a_lv, w_lv)),
+                  f"{name}: the plain version is not the exact accumulator")
+            row = dict(tag, a_bits=a_bits, w_bits=1, max_abs_err=err(got, ref),
+                       ms=time_ms(lambda: bitgemm_packed(a_planes, w_planes,
+                                                         **kw), 30, flush),
+                       plain_ms=time_ms(lambda: bitgemm_packed_plain(
+                           a_planes, w_planes, **kw), 5, flush),
+                       popc_floor_ms=1e3 * m * n * kwords * a_bits / popc_rate,
+                       **_int_mm_yardstick(a_lv.view(torch.int8),
+                                           w_lv.view(torch.int8), flush))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2.0 * m * n * k,
+                4 * (a_planes.numel() + w_planes.numel() + m * n))
+            summary["bitgemm_packed"].append(row)
+            print("KERNEL", json.dumps(row), flush=True)
+
+        # quantize_pack: float in (quant_dense_kernel) and levels in (the
+        # faithful engine), timed at 4 bits
+        a = torch.rand((m, k), generator=gen, device=dev) * 1.4 - 0.2
+        qp_err = 0.0
+        for bits in (1, 4):
+            lv, pk = quantize_pack(a, bits)
+            r_lv, r_pk = quantize_pack_plain(a, bits)
+            lv2, pk2 = quantize_pack(r_lv, bits)
+            torch.cuda.synchronize()
+            check(torch.equal(lv, r_lv) and torch.equal(pk, r_pk)
+                  and torch.equal(pk2, r_pk),
+                  f"quantize_pack {model} {lp.name} b{bits}: levels or "
+                  f"planes differ from the plain version")
+            qp_err = max(qp_err, err(lv, r_lv), err(pk, r_pk), err(pk2, r_pk))
+        plane_bytes = 4 * 4 * m * kwords
+        # float in: clip, scale, round, clip — 6 float32 operations a value
+        for form, x, nbytes, flops in (
+                ("float in", a, 4 * m * k + m * k + plane_bytes, 6.0 * m * k),
+                ("levels in", r_lv, m * k + plane_bytes, 0.0)):
+            row = dict(tag, form=form, bits=4, max_abs_err=qp_err,
+                       ms=time_ms(lambda x=x: quantize_pack(x, 4), 30, flush),
+                       plain_ms=time_ms(lambda x=x: quantize_pack_plain(x, 4),
+                                        5, flush),
+                       library_call="none: no single PyTorch call quantizes "
+                                    "and packs bit planes",
+                       library_ms=None)
+            row["bound_ms"], row["bound_by"] = bound_ms(0.0, nbytes, flops)
+            summary["quantize_pack"].append(row)
+            print("KERNEL", json.dumps(row), flush=True)
+        if model == "alexnet" and not lp.fc:
+            continue   # the int8 path serves svhn; AlexNet's fc5/fc6 too
+
+        # int8_matmul on the nibble groups of W1A8 levels
+        a_lv = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.uint8,
+                             device=dev)
+        w8 = w_lv.view(torch.int8)
+        groups = [g.view(torch.int8) for g, _ in _nibble_split(a_lv, 8)]
+        for g in groups:
+            got, ref = int8_matmul(g, w8), int8_matmul_plain(g, w8)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref),
+                  f"int8_matmul {model} {lp.name}: nibble group differs from "
+                  f"the plain version (max abs {err(got, ref)})")
+        g = groups[0]
+        row = dict(tag, operands="W1A8 nibble group (levels 0..15 x 0/1)",
+                   launches_per_layer=len(groups), max_abs_err=err(got, ref),
+                   ms=time_ms(lambda: int8_matmul(g, w8), 30, flush),
+                   plain_ms=time_ms(lambda: int8_matmul_plain(g, w8), 5,
+                                    flush),
+                   **_int_mm_yardstick(g, w8, flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * m * n * k,
+                                                    m * k + k * n + 4 * m * n)
+        summary["int8_matmul"].append(row)
+        print("KERNEL", json.dumps(row), flush=True)
+
+    # one signed case: full-range s8 operands, negative values included
+    a8 = torch.randint(-128, 128, (800, 256), generator=gen, dtype=torch.int8,
+                       device=dev)
+    b8 = torch.randint(-128, 128, (256, 512), generator=gen, dtype=torch.int8,
+                       device=dev)
+    a8[0], b8[:, 0] = -128, -128
+    got, ref = int8_matmul(a8, b8), int8_matmul_plain(a8, b8)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"int8_matmul signed case differs from the "
+                                 f"plain version (max abs {err(got, ref)})")
+    summary["int8_matmul"].append(dict(
+        case="signed s8 x s8, values -128..127", shape=[800, 256, 512],
+        max_abs_err=err(got, ref)))
     return summary
 
 
@@ -504,9 +683,9 @@ def main_path(card: str) -> dict:
 
     svhn_dispatches = sum(dep.stats["dispatches"] - d0[tag]
                           for tag, (_, dep) in deps.items())
-    want = {"conv_implicit": 5 * svhn_dispatches + 4,
-            "fused_qgemm": 1 * svhn_dispatches + 2,
-            "attn_flash": 0, "attn_paged": 0}
+    want = {k: 0 for k in launches}
+    want.update(conv_implicit=5 * svhn_dispatches + 4,
+                fused_qgemm=1 * svhn_dispatches + 2)
     check(launches == want, f"launch counts {launches} != expected {want}")
     report = {"launches": launches, "svhn": {}, "alexnet": {}}
     for tag, rr in rounds.items():
@@ -570,6 +749,198 @@ def main_path(card: str) -> dict:
         "card": card}
     print("MAIN", json.dumps(report), flush=True)
     return report
+
+
+def bitplane_main_path(card: str) -> dict:
+    """The faithful and int8 engines through the serving entry points:
+    svhn at W1A1 and W1A4 on ``faithful`` and at W1A8 on ``int8`` (the
+    same weights and requests as :func:`main_path`), AlexNet W1A1 on
+    ``faithful``; every logit held exactly to the plain versions and to
+    the default engines."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.core import plan as P
+    from repro_torch.core.quant import PAPER_CONFIGS, W1A1
+    from repro_torch.kernels import _lib
+    from repro_torch.models.cnn import alexnet_spec, init_cnn, svhn_cnn_spec
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(1)
+    images = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+              for _ in range(16)]
+    x_alex = torch.from_numpy(
+        rs.uniform(0, 1, (8, 224, 224, 3)).astype(np.float32)).to(dev)
+    batches = [torch.from_numpy(np.stack(images[i:i + 8])).to(dev)
+               for i in (0, 8)]
+    spec = svhn_cnn_spec()
+    svhn_params = init_cnn(torch.Generator(device=dev).manual_seed(0), spec)
+
+    def compile_svhn(q):
+        return api.build(spec, q, params=svhn_params, img_hw=40).compile(
+            target="cuda", batch_hints=(1, 8))
+
+    deps, defaults = {}, {}
+    for qname, engine in BITPLANE_PATHS:
+        q = PAPER_CONFIGS[qname]
+        compiled = compile_svhn(dataclasses.replace(q, engine=engine))
+        check({lp.engine for lp in compiled.plan.layers if not lp.fp}
+              == {engine}, f"svhn {qname} {engine}: plan engines "
+                           f"{[lp.engine for lp in compiled.plan.layers]}")
+        tag = f"{qname} {engine}"
+        deps[tag] = (qname, compiled, compiled.serve(max_batch=8))
+        deps[tag][2].predict(images[:8])          # warm-up, not counted
+        defaults[qname] = compile_svhn(q)
+    alex_params = init_cnn(torch.Generator(device=dev).manual_seed(1),
+                           alexnet_spec())
+    alex, alex_default = (api.build(alexnet_spec(), q, params=alex_params,
+                                    img_hw=224).compile(target="cuda",
+                                                        batch_hints=(8,))
+                          for q in (dataclasses.replace(W1A1,
+                                                        engine="faithful"),
+                                    W1A1))
+    alex.forward(x_alex)                          # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # ---- the faithful and int8 main path, counted
+    rounds = {tag: [] for tag in deps}
+    windows = {}
+    d0 = {tag: dep.stats["dispatches"] for tag, (_, _, dep) in deps.items()}
+    _lib.reset_launches()
+    for tag, (_, _, dep) in deps.items():
+        for _ in range(SERVE_ROUNDS):
+            rounds[tag].append(dep.engine.serve(images))
+        if tag in BITPLANE_WINDOWS:
+            windows[tag] = serve_window(dep.engine, images)
+    t0 = time.perf_counter()
+    alex_logits = alex.forward(x_alex)
+    torch.cuda.synchronize()
+    alex_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    # ----
+
+    disp = {tag: dep.stats["dispatches"] - d0[tag]
+            for tag, (_, _, dep) in deps.items()}
+    faithful = sum(d for tag, d in disp.items() if tag.endswith("faithful"))
+    want = {k: 0 for k in launches}
+    want.update(quantize_pack=6 * faithful + 6,
+                bitgemm_packed=6 * faithful + 6,
+                int8_matmul=12 * disp["w1a8 int8"])
+    check(launches == want, f"faithful/int8 launch counts {launches} != "
+                            f"expected {want}")
+    report = {"launches": launches, "dispatches": disp, "svhn": {},
+              "alexnet": {}}
+    for tag, rr in rounds.items():
+        qname, compiled, dep = deps[tag]
+        vals = [np.stack([r.value for r in res]) for res in rr]
+        got = vals[-1]
+        check(got.shape == (16, 10), f"svhn {tag}: logits {got.shape}")
+        check(all(np.array_equal(v, got) for v in vals),
+              f"svhn {tag}: rounds of the same requests differ")
+        ref = np.concatenate([compiled.forward(b, reference=True).cpu().numpy()
+                              for b in batches])
+        default = np.concatenate([defaults[qname].forward(b).cpu().numpy()
+                                  for b in batches])
+        alone = np.stack([dep.predict([img])[0] for img in images])
+        report["svhn"][tag] = dict(
+            correctness_set=dict(requests=16, rounds=len(rr), dispatches=2),
+            vs_plain=_check_logits(f"svhn {tag} vs plain", got, ref,
+                                   exact=True),
+            vs_default_engines=_check_logits(f"svhn {tag} vs default engines",
+                                             got, default, exact=True),
+            alone_vs_batched=_check_logits(f"svhn {tag} alone vs batched",
+                                           alone, got),
+            card=card)
+        if tag in windows:
+            win, win_vals = windows[tag]
+            check(all(np.array_equal(v, got[i % 16]) for i, v in
+                      enumerate(win_vals)),
+                  f"svhn {tag}: window results differ from the request set's")
+            report["svhn"][tag]["serving_window"] = win
+
+    # the default engines' W1A1 window beside faithful W1A1's (the default
+    # W1A8 window is main_path's); outside the counted run
+    dep = defaults["w1a1"].serve(max_batch=8)
+    dep.predict(images[:8])
+    report["svhn"]["w1a1 default"] = dict(
+        serving_window=serve_window(dep.engine, images)[0], card=card)
+
+    got = alex_logits.cpu().numpy()
+    check(got.shape == (8, 1000), f"alexnet faithful: logits {got.shape}")
+    head = P.layers_for_batch(alex.plan, 8)[:6]
+    head_d = P.layers_for_batch(alex_default.plan, 8)[:6]
+    check({lp.engine for lp in head if not lp.fp} == {"faithful"},
+          "alexnet faithful: head engines")
+    feats = P.execute_cnn_layers(head, alex.params[:6], x_alex, alex.plan.quant)
+    feats_ref = P.execute_cnn_layers(head, alex.params[:6], x_alex,
+                                     alex.plan.quant, reference=True)
+    feats_d = P.execute_cnn_layers(head_d, alex_default.params[:6], x_alex,
+                                   W1A1)
+    report["alexnet"] = dict(
+        quant="w1a1 faithful", batch=8, forward_ms_counted_run=1e3 * alex_s,
+        vs_plain=_check_logits("alexnet faithful vs plain", got,
+                               alex.forward(x_alex, reference=True)
+                               .cpu().numpy(), exact=True),
+        vs_default_engines=_check_logits(
+            "alexnet faithful vs default engines", got,
+            alex_default.forward(x_alex).cpu().numpy(), exact=True),
+        fc5_vs_plain=_check_logits("alexnet faithful fc5 vs plain",
+                                   feats.cpu().numpy(),
+                                   feats_ref.cpu().numpy(), exact=True),
+        fc5_vs_default_engines=_check_logits(
+            "alexnet faithful fc5 vs default engines", feats.cpu().numpy(),
+            feats_d.cpu().numpy(), exact=True),
+        card=card)
+    report["profile"] = {
+        tag: profile_forward(lambda c=deps[tag][1]: c.forward(batches[0]), 20)
+        for tag in BITPLANE_WINDOWS}
+    report["profile"]["alexnet w1a1 faithful"] = profile_forward(
+        lambda: alex.forward(x_alex), 5)
+    report["profile"]["card"] = card
+    report["quant_dense_kernel"] = dense_kernel_check()
+    print("BITPLANE MAIN", json.dumps(report), flush=True)
+    return report
+
+
+def dense_kernel_check() -> dict:
+    """``quant_dense_kernel`` (float in) at AlexNet fc5's shape, (8, 9216)
+    x (9216, 4096), W1A1 and W1A4: the mxu and faithful paths equal each
+    other and their plain-version runs exactly, with one quantize_pack and
+    one bitgemm_packed or int8_matmul launch per call."""
+    from repro_torch.kernels import _lib, ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    a = torch.rand((8, 9216), generator=gen, device=dev) * 1.4 - 0.2
+    w = torch.randn((9216, 4096), generator=gen, device=dev)
+    out = {}
+    for a_bits in (1, 4):
+        res, counts = {}, {}
+        for path, kern in (("mxu", "int8_matmul"),
+                           ("faithful", "bitgemm_packed")):
+            _lib.reset_launches()
+            res[path] = ops.quant_dense_kernel(a, w, a_bits, 1, path=path)
+            torch.cuda.synchronize()
+            counts[path] = dict(_lib.LAUNCHES)
+            want = {k: 0 for k in counts[path]}
+            want.update({"quantize_pack": 1, kern: 1})
+            check(counts[path] == want, f"quant_dense_kernel {path} "
+                                        f"a{a_bits}: launches {counts[path]}")
+            plain = ops.quant_dense_kernel(a, w, a_bits, 1, path=path,
+                                           reference=True)
+            check(torch.equal(res[path], plain),
+                  f"quant_dense_kernel {path} a{a_bits}: differs from the "
+                  f"plain versions")
+        check(torch.equal(res["mxu"], res["faithful"]),
+              f"quant_dense_kernel a{a_bits}: mxu and faithful differ")
+        check(res["mxu"].shape == (8, 4096)
+              and bool(torch.isfinite(res["mxu"]).all()),
+              f"quant_dense_kernel a{a_bits}: shape or values")
+        out[f"w1a{a_bits}"] = dict(shape=[8, 9216, 4096], paths_equal=True,
+                                   vs_plain="equal", launches={
+                                       p: {k: v for k, v in c.items() if v}
+                                       for p, c in counts.items()})
+    return out
 
 
 def _hold_tokens(tag: str, got: np.ndarray, ref: np.ndarray,
@@ -654,9 +1025,9 @@ def lm_main_path(card: str) -> dict:
     phases["bucket_s"], phases["continuous_s"] = t_bucket, t_cont
     b_disp = bucket.stats["dispatches"] - b0
     c_disp = cont.stats["dispatches"] - c0
-    want = {"fused_qgemm": 0, "conv_implicit": 0,
-            "attn_flash": cfg.n_layers * b_disp,
-            "attn_paged": cfg.n_layers * c_disp}
+    want = {k: 0 for k in launches}
+    want.update(attn_flash=cfg.n_layers * b_disp,
+                attn_paged=cfg.n_layers * c_disp)
     check(launches == want, f"LM launch counts {launches} != expected {want}")
     check(b_disp == 1, f"bucket engine: {b_disp} dispatches for one bucket")
 
@@ -774,7 +1145,8 @@ def lm_profiles(params, cfg, layers, cont_engine) -> dict:
 
 
 def _kernel_label(name: str) -> str:
-    for k in ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged"):
+    for k in ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
+              "quantize_pack", "bitgemm_packed", "int8_matmul"):
         if f"{k}_kernel" in name:
             return k
     return name[:70]
@@ -819,37 +1191,59 @@ def profile_forward(fn, iters: int) -> dict:
 def kernels_line(summary: dict, launches: dict) -> dict:
     meta = {
         "fused_qgemm": ("src/repro_torch/csrc/fused_qgemm.cu",
-                        "src/repro/kernels/fused_qgemm.py:134"),
+                        "src/repro/kernels/fused_qgemm.py:134",
+                        "one W1A8 launch at each batch-8 main-path shape"),
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
-                          "src/repro/kernels/conv_implicit.py:150"),
+                          "src/repro/kernels/conv_implicit.py:150",
+                          "one W1A8 launch at each batch-8 main-path shape"),
         "attn_flash": ("src/repro_torch/csrc/attn_flash.cu",
-                       "src/repro/kernels/attn_flash.py:361"),
+                       "src/repro/kernels/attn_flash.py:361",
+                       "one bf16 call at each LM main-path shape"),
         "attn_paged": ("src/repro_torch/csrc/attn_paged.cu",
-                       "src/repro/kernels/attn_flash.py:602"),
+                       "src/repro/kernels/attn_flash.py:602",
+                       "one bf16 call at each LM main-path shape"),
+        "quantize_pack": ("src/repro_torch/csrc/quantpack.cu",
+                          "src/repro/kernels/quantpack.py:57",
+                          "one 4-bit launch, float in and levels in, at each "
+                          "batch-8 faithful-path activation shape"),
+        "bitgemm_packed": ("src/repro_torch/csrc/bitgemm.cu",
+                           "src/repro/kernels/bitgemm.py:80",
+                           "one launch at each batch-8 faithful-path shape, "
+                           "svhn at W1A1 and W1A4, AlexNet at W1A1"),
+        "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
+                        "src/repro/kernels/bitgemm_mxu.py:65",
+                        "one launch (one W1A8 nibble group) at each batch-8 "
+                        "int8-path shape"),
     }
     out = []
     for name, rows in summary.items():
         timed = [r for r in rows if "ms" in r]
         tot = {k: sum(r[k] for r in timed)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+               for k in ("ms", "plain_ms", "bound_ms")}
+        lib = [r["library_ms"] for r in timed]
+        tot["library_ms"] = None if None in lib else sum(lib)
         bound_by = ("bytes" if sum(r["bound_ms"] for r in timed
                                    if r["bound_by"] == "bytes")
                     >= tot["bound_ms"] / 2 else "operations")
-        src, replaces = meta[name]
-        out.append(dict(
+        src, replaces, timed_over = meta[name]
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=bound_by, library_ms=tot["library_ms"],
-            timed_over=("one W1A8 launch at each batch-8 main-path shape"
-                        if name in ("fused_qgemm", "conv_implicit") else
-                        "one bf16 call at each LM main-path shape"),
-            shapes=[{k: r[k] for k in ("model", "layer", "case", "shape",
-                                       "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms",
-                                       "library_call") if k in r}
-                    for r in timed]))
+            timed_over=timed_over)
+        if name == "bitgemm_packed":
+            entry["popc_floor_ms"] = sum(r["popc_floor_ms"] for r in timed)
+        if name == "quantize_pack":
+            entry["library_call"] = timed[0]["library_call"]
+        entry["shapes"] = [
+            {k: r[k] for k in ("model", "layer", "case", "shape", "a_bits",
+                               "form", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "popc_floor_ms", "library_ms",
+                               "library_call") if k in r}
+            for r in timed]
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -877,9 +1271,11 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = kernel_phase(flush)
     t1 = time.perf_counter()
+    summary.update(bitplane_kernel_phase(flush))
+    t2 = time.perf_counter()
     summary.update(lm_kernel_phase(flush))
-    print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, lm "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, bit-plane {t2 - t1:.1f} s, "
+          f"lm {time.perf_counter() - t2:.1f} s", flush=True)
     del flush
     if "--kernels-only" in sys.argv[1:]:
         print("KERNELS-ONLY done", flush=True)
@@ -889,6 +1285,13 @@ def main() -> int:
     launches = {k: report["launches"][k] for k in ("fused_qgemm",
                                                     "conv_implicit")}
     print(f"CNN MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    bit = bitplane_main_path(card)
+    launches.update({k: bit["launches"][k] for k in ("quantize_pack",
+                                                      "bitgemm_packed",
+                                                      "int8_matmul")})
+    print(f"FAITHFUL/INT8 MAIN PATH {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     lm = lm_main_path(card)
     launches.update({k: lm["launches"][k] for k in ("attn_flash",

@@ -7,11 +7,16 @@ Two kinds of target:
   for deep-K spatial convs whose block fits shared memory, ``fused``
   otherwise — with the TPU's 8 MiB VMEM residency bound replaced by the
   shared-memory bound of the port's implicit kernel, computed by the same
-  function the kernel wrapper uses.  The reference's other engines are not
-  ported yet and are infeasible here.  Attention routes as the TPU target
-  does too (``flash`` for quantized prefill from 2048 tokens, ``paged``
-  for page-table geometries).  No crossover constant is tuned: none has
-  been measured on the card.
+  function the kernel wrapper uses.  Every other dense engine of the
+  reference (``faithful``, ``planes``, ``packed``, ``int8``,
+  ``int8_planewise``, ``f32dot``) is feasible under its exactness bound
+  when a ``QuantConfig`` names it (``ops.engine_feasible``), but the
+  automatic routing never picks one: the TPU target's crossover to
+  ``faithful`` (binary, huge-K, skinny layers) is a TPU constant, and no
+  crossover has been measured on the card.  Attention routes as the TPU
+  target does too (``flash`` for quantized prefill from 2048 tokens,
+  ``paged`` for page-table geometries).  No crossover constant is tuned:
+  none has been measured on the card.
 * :class:`PIMTarget` — the paper's four accelerators, priced with the
   calibrated device model exactly as the reference prices them.
 """

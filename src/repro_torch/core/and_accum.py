@@ -1,14 +1,28 @@
-"""The level-GEMM arithmetic shared by both kernels and their plain versions
-(port of the parts of ``repro/core/and_accum.py`` the CNN and LM slices
-need).
+"""AND-Accumulation level GEMM, the paper's Eq. (1) (port of
+``repro/core/and_accum.py``):
+
+    I * W = sum_m sum_n 2^(m+n) CMP(AND(C_n(W), C_m(I)))
+
+Five engines, each returning the exact int32 accumulator, so all are equal
+bit for bit: ``planes`` (explicit {0,1} planes, a product per plane
+pair), ``packed`` (planes packed 32 per word, AND + popcount),
+``int8`` (one product on the levels, nibble-split above 7 bits),
+``int8_planewise`` (a product per plane pair) and ``f32dot`` (a float32
+product, exact below the mantissa bound).  These are the plain PyTorch
+versions: the serve path runs ``packed``'s dataflow on
+``csrc/bitgemm.cu`` (the ``faithful`` engine) and the int8 products on
+``csrc/int8_matmul.cu`` (:mod:`repro_torch.kernels.ops`).  Integer
+products run in float64, which holds them exactly and, unlike an int64
+matmul, runs on the card too.
 
 With a = s_a * A (A unsigned levels) and w = s_w * (W - z_w):
 
     a @ w = s_a*s_w * (A @ W) - s_a*s_w*z_w * rowsum(A)
 
-``dequant_epilogue`` is the single f32 epilogue expression; both CUDA
-kernels compute it with explicitly rounded multiplies (no FMA contraction),
-so a kernel and its plain version agree bit for bit.
+``dequant_epilogue`` is the single f32 epilogue expression every engine
+shares; the CUDA kernels compute it with explicitly rounded multiplies
+(no FMA contraction), so a kernel and its plain version agree bit for
+bit.
 
 The signed (transformer) path, :func:`quant_dense_forward_signed_pre`, has
 no Pallas kernel in the reference: its level GEMM runs on XLA's int8
@@ -20,9 +34,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import bitplane
 from .quant import (activation_levels_signed, activation_levels_signed_row,
                     signed_levels)
-
 
 
 def int32_exact(k: int, a_bits: int, w_bits: int) -> bool:
@@ -56,6 +70,139 @@ def dequant_epilogue(acc: torch.Tensor, rowsum: torch.Tensor, s, t
     Python scalars they enter a float32 op as float32, exactly."""
     return (acc.to(torch.float32) * float(s)
             - rowsum.to(torch.float32)[:, None] * float(t))
+
+
+def f32dot_exact(k: int, a_bits: int, w_bits: int) -> bool:
+    """Exactness bound of :func:`bitgemm_f32dot`: every partial sum is an
+    integer inside the fp32 mantissa."""
+    return ((1 << a_bits) - 1) * ((1 << w_bits) - 1) * max(k, 1) < (1 << 24)
+
+
+def _int_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return level_gemm_exact(a, b).to(torch.int32)
+
+
+def bitgemm_planes(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                   w_bits: int) -> torch.Tensor:
+    """Eq. (1) on explicit planes: a_lv (M,K), w_lv (K,N) -> int32 (M,N).
+    The AND of two {0,1} planes is their product; CMP is the sum over K."""
+    pa = bitplane.decompose(a_lv, a_bits)
+    pw = bitplane.decompose(w_lv, w_bits)
+    out = torch.zeros((a_lv.shape[0], w_lv.shape[1]), dtype=torch.int32,
+                      device=a_lv.device)
+    for m in range(a_bits):
+        for n in range(w_bits):
+            out += _int_gemm(pa[m], pw[n]) << (m + n)
+    return out
+
+
+# words of one (rows, N, Kw) AND intermediate of the packed dataflow
+_AND_CHUNK = 1 << 22
+
+
+def bitgemm_packed_planes(a_planes: torch.Tensor, w_planes: torch.Tensor
+                          ) -> torch.Tensor:
+    """AND + popcount on packed planes: a_planes (a_bits, M, Kw) and
+    w_planes (w_bits, N, Kw) int32 words -> int32 (M, N).  The (M, N, Kw)
+    AND intermediate is taken a block of rows at a time."""
+    a_bits, m, kw = a_planes.shape
+    w_bits, n, _ = w_planes.shape
+    out = torch.zeros((m, n), dtype=torch.int32, device=a_planes.device)
+    step = max(1, _AND_CHUNK // max(n * kw, 1))
+    for r0 in range(0, m, step):
+        acc = out[r0:r0 + step]
+        for i in range(a_bits):
+            a = a_planes[i, r0:r0 + step, None, :]
+            for j in range(w_bits):
+                cmp = bitplane.popcount(a & w_planes[j][None]).sum(
+                    dim=-1, dtype=torch.int32)
+                acc += cmp << (i + j)
+    return out
+
+
+def bitgemm_packed(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                   w_bits: int) -> torch.Tensor:
+    """Eq. (1) on planes packed 32 per word along K: AND, popcount, shift
+    by m+n, accumulate."""
+    return bitgemm_packed_planes(bitplane.decompose_packed(a_lv, a_bits),
+                                 bitplane.decompose_packed(w_lv.T, w_bits))
+
+
+def _nibble_split(lv: torch.Tensor, bits: int):
+    """Integer levels -> groups of at most 7 bits, ``lv == sum grp << sh``:
+    int8 operands must stay below 128, so 8-bit levels split into two
+    nibbles (two products instead of eight plane products, still exact)."""
+    if bits <= 7:
+        return [(lv, 0)]
+    groups, shift = [], 0
+    while shift < bits:
+        g = min(4, bits - shift)
+        groups.append(((lv >> shift) & ((1 << g) - 1), shift))
+        shift += g
+    return groups
+
+
+def bitgemm_int8(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                 w_bits: int) -> torch.Tensor:
+    """Every plane pair folded into one int8 product on the levels
+    (nibble-split above 7 bits)."""
+    out = torch.zeros((a_lv.shape[0], w_lv.shape[1]), dtype=torch.int32,
+                      device=a_lv.device)
+    for ga, sa in _nibble_split(a_lv, a_bits):
+        for gw, sw in _nibble_split(w_lv, w_bits):
+            out += _int_gemm(ga.to(torch.int8), gw.to(torch.int8)) << (sa + sw)
+    return out
+
+
+def bitgemm_int8_planewise(a_lv: torch.Tensor, w_lv: torch.Tensor,
+                           a_bits: int, w_bits: int) -> torch.Tensor:
+    """Eq. (1) at plane-pair granularity, one int8 product per pair."""
+    pa = bitplane.decompose(a_lv, a_bits).to(torch.int8)
+    pw = bitplane.decompose(w_lv, w_bits).to(torch.int8)
+    out = torch.zeros((a_lv.shape[0], w_lv.shape[1]), dtype=torch.int32,
+                      device=a_lv.device)
+    for m in range(a_bits):
+        for n in range(w_bits):
+            out += _int_gemm(pa[m], pw[n]) << (m + n)
+    return out
+
+
+def bitgemm_f32dot(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                   w_bits: int) -> torch.Tensor:
+    """The level GEMM as one float32 product (TF32 is off in the port):
+    exact while ``a_max * w_max * K < 2^24``, and refused beyond."""
+    if not f32dot_exact(a_lv.shape[-1], a_bits, w_bits):
+        raise ValueError(
+            f"f32dot engine inexact for a_bits={a_bits}, w_bits={w_bits}, "
+            f"K={a_lv.shape[-1]} (accumulator exceeds the fp32 mantissa); "
+            "use engine='int8'")
+    return torch.matmul(a_lv.to(torch.float32),
+                        w_lv.to(torch.float32)).to(torch.int32)
+
+
+_ENGINES = {
+    "planes": bitgemm_planes,
+    "packed": bitgemm_packed,
+    "int8": bitgemm_int8,
+    "int8_planewise": bitgemm_int8_planewise,
+    "f32dot": bitgemm_f32dot,
+}
+
+
+def bitgemm(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+            w_bits: int, engine: str = "int8") -> torch.Tensor:
+    """Integer-level GEMM dispatch; every engine gives the same int32."""
+    return _ENGINES[engine](a_lv, w_lv, a_bits, w_bits)
+
+
+def quant_dense_pre_levels(a_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w,
+                           a_bits: int, w_bits: int, engine: str = "int8"
+                           ) -> torch.Tensor:
+    """Unsigned dense on pre-quantized operands through one of the five
+    engines: the exact accumulator, then the shared epilogue."""
+    acc = bitgemm(a_lv, w_lv, a_bits, w_bits, engine)
+    s, t = epilogue_scales(a_bits, s_w, z_w)
+    return dequant_epilogue(acc, a_lv.sum(dim=-1, dtype=torch.int32), s, t)
 
 
 # torch._int_mm on the card (cuBLASLt int8) takes more than 16 rows, a row

@@ -57,11 +57,12 @@ def im2col_sliced(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
 def quant_conv2d_pre(x: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                      kh: int, kw: int, stride: int = 1,
                      padding: str = "SAME", a_bits: int = 4,
-                     w_bits: int = 1, engine: str,
+                     w_bits: int = 1, engine: str, w_planes=None,
                      reference: bool = False) -> torch.Tensor:
     """Serve conv on pre-quantized weights: quantize the (B,H,W,C) image to
-    levels once, then run the level conv through ``engine``.
-    ``reference=True`` runs the kernels' plain versions instead (see
+    levels once, then run the level conv through ``engine``.  ``w_planes``:
+    the weights packed for the faithful engine.  ``reference=True`` runs
+    the kernels' plain versions instead (see
     :func:`repro_torch.kernels.ops.quant_conv_serve`)."""
     from repro_torch.kernels import ops  # kernels layer sits above core
 
@@ -69,7 +70,7 @@ def quant_conv2d_pre(x: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     return ops.quant_conv_serve(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw,
                                 stride=stride, padding=padding,
                                 a_bits=a_bits, w_bits=w_bits, engine=engine,
-                                reference=reference)
+                                w_planes=w_planes, reference=reference)
 
 
 def conv2d_float(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

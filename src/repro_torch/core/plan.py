@@ -3,7 +3,10 @@
 
 :func:`compile_model` resolves every layer's engine at every batch hint
 and pre-quantizes the weights once; :func:`plan_forward` walks the
-resulting :class:`ModelPlan`.  Not ported yet: the static prover,
+resulting :class:`ModelPlan`.  An explicit ``QuantConfig.engine`` (any of
+the reference's dense engines) pins every quantized layer; the faithful
+engine's weight planes are packed once, at compile.  Not ported yet: the
+static prover,
 autotune, per-layer cost annotations, ``save_plan``/``load_plan`` and the
 LM compile pass.
 """
@@ -128,13 +131,26 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target):
     return tuple(layers)
 
 
+def _pack_faithful_weights(params, layers):
+    """Copies of the layer dicts, with ``w_planes`` added where any batch
+    hint runs the faithful engine."""
+    out = []
+    for lp, p in zip(layers, params):
+        p = dict(p)
+        if any(e == "faithful" for _, e in lp.engines):
+            p["w_planes"] = ops.pack_weight_planes(p["w_lv"], lp.w_bits)
+        out.append(p)
+    return out
+
+
 def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
                   batch_hints=(1,), img_hw=40) -> ModelPlan:
     """Compile a CNN serve plan.  ``params`` (float or prequantized, on any
     device) are pre-quantized once on their own device; ``params=None``
     gives a structure-only plan.  An explicit ``quant.engine`` that is
-    infeasible on ``target`` — including every engine not yet ported —
-    raises :class:`PlanError` naming the layer."""
+    infeasible on ``target`` raises :class:`PlanError` naming the layer.
+    Layers on the faithful engine carry ``w_planes``, their weight levels
+    packed into bit planes once, here."""
     from repro_torch.api.targets import get_target
 
     target = get_target(target).name
@@ -147,6 +163,7 @@ def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
     if params is not None:
         serve_params = (params if is_prequantized(params)
                         else prequantize_cnn_params(params, spec, quant))
+        serve_params = _pack_faithful_weights(serve_params, layers)
     return ModelPlan(target=target, quant=quant, layers=layers,
                      params=serve_params)
 
@@ -169,7 +186,8 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
             h = quant_conv2d_pre(
                 h, p["w_lv"], p["s_w"], p["z_w"], kh=lp.kh, kw=lp.kw,
                 stride=lp.stride, padding=lp.padding, a_bits=lp.a_bits,
-                w_bits=lp.w_bits, engine=lp.engine, reference=reference)
+                w_bits=lp.w_bits, engine=lp.engine,
+                w_planes=p.get("w_planes"), reference=reference)
         h = h + p["b"]
         if lp.index < last:
             h = _norm_act(h, p["g"], p["beta"], quant, lp.role, "serve")

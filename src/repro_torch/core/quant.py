@@ -18,8 +18,12 @@ import torch
 class QuantConfig:
     """Bit-width configuration, e.g. the paper's W:I = 1:4 with 8-bit grads.
 
-    ``engine``: 'auto' (the compute target's dispatch), an explicit engine
-    name ('fused' / 'implicit' on this port), or 'fp' (no bitwise engine).
+    ``engine``: 'auto' (the compute target's dispatch), 'fp' (no bitwise
+    engine), or an explicit engine name pinning every quantized layer:
+    'fused', 'implicit', 'faithful' (the paper's AND + popcount on
+    packed bit planes), 'int8', 'int8_planewise', 'planes', 'packed' or
+    'f32dot'.  All give the same int32 accumulator and the same epilogue,
+    so their outputs are equal bit for bit.
 
     ``act_scale_mode`` is the dynamic activation-scale granularity on the
     signed (LM) serve path: 'tensor' (one absmax over the dispatched batch)

@@ -7,7 +7,8 @@ sources in parallel, into ``build/kernels/`` at the repository root; a
 library's file name carries a hash of its source and flags, so an edited
 source never loads a stale build.
 
-Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+Each kernel wrapper counts its launches in :data:`LAUNCHES`, keyed by
+kernel name (:data:`KERNELS` names each kernel's source).
 """
 from __future__ import annotations
 
@@ -23,12 +24,18 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
                                 REPO_ROOT / "build" / "kernels"))
-SOURCES = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged")
+SOURCES = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
+           "quantpack", "bitgemm", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> launches through its wrapper (never the plain version)
-LAUNCHES = {name: 0 for name in SOURCES}
+# kernel name -> its source; launches through its wrapper (never the
+# plain version)
+KERNELS = {"fused_qgemm": "fused_qgemm", "conv_implicit": "conv_implicit",
+           "attn_flash": "attn_flash", "attn_paged": "attn_paged",
+           "quantize_pack": "quantpack", "bitgemm_packed": "bitgemm",
+           "int8_matmul": "int8_matmul"}
+LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc/ptxas output of the build
@@ -94,6 +101,16 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def launcher(kernel: str, argtypes: list):
+    """The C function ``<kernel>_launch`` of the kernel's library (built
+    on first use), with its ctypes signature set."""
+    fn = getattr(library(KERNELS[kernel]), f"{kernel}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

@@ -184,14 +184,6 @@ def attn_flash_plain(q, k, v, *, causal: bool = True,
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _fn(name: str, argtypes: list):
-    fn = getattr(_lib.library(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_flash(q, k, v, q_bits, k_bits) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"attn_flash: needs q (B,Sq,H,hd), k and v "
@@ -225,7 +217,7 @@ def _flash_cuda(q, k, v, causal, window, q_bits, k_bits) -> torch.Tensor:
     if out.numel() == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _fn(FLASH, [p, p, p, p, p] + [i] * 8 + [p])
+    launch = _lib.launcher(FLASH, [p, p, p, p, p] + [i] * 8 + [p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(qc.data_ptr(), kc.data_ptr(), v.data_ptr(),
@@ -369,7 +361,7 @@ def _paged_cuda(q, pool_k, pool_v, ppos, table, q_pos, causal, window, bits,
     rows = paged_group_heads(Hp, Hkv, n_q) * S
     smem = paged_smem_bytes(rows, hd, ps)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _fn(PAGED, [p] * 9 + [i] * 13 + [p])
+    launch = _lib.launcher(PAGED, [p] * 9 + [i] * 13 + [p])
     pk, pv = pool_k.contiguous(), pool_v.contiguous()
     pp = ppos.to(torch.int32).contiguous()
     qp = q_pos.to(torch.int32).contiguous()

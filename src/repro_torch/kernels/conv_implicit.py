@@ -89,12 +89,8 @@ def _check(x_lv, w_lv, kh, kw, stride, padding, a_bits, w_bits) -> None:
 
 
 def _launcher():
-    fn = _lib.library(NAME).conv_implicit_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p] + [i] * 15 + [f, f, p]
-        fn.restype = ctypes.c_int
-    return fn
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _lib.launcher(NAME, [p, p, p] + [i] * 15 + [f, f, p])
 
 
 def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,

@@ -55,12 +55,8 @@ def _check(a: torch.Tensor, w_lv: torch.Tensor, a_bits: int, w_bits: int,
 
 
 def _launcher():
-    fn = _lib.library(NAME).fused_qgemm_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, i, i, i, i, i, f, f, p]
-        fn.restype = ctypes.c_int
-    return fn
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _lib.launcher(NAME, [p, p, p, i, i, i, i, i, f, f, p])
 
 
 def fused_qgemm(a: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,

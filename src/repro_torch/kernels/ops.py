@@ -1,11 +1,22 @@
 """Serve entry points and engine dispatch for the quantized layers, and the
 attention engine dispatch (port of ``repro/kernels/ops.py``).
 
-Two engines are ported, one per hand-written kernel: ``fused`` (the fused
-level GEMM, :mod:`.fused_qgemm`) and ``implicit`` (the implicit-GEMM conv,
-:mod:`.conv_implicit`).  The reference's other engines (``faithful``,
-``planes``, ``packed``, ``int8``, ``int8_planewise``, ``f32dot``) are not
-ported yet; asking for one raises.
+Every dense engine of the reference is ported, and all of them give the
+same int32 level-GEMM accumulator and then run the one shared epilogue
+(``and_accum.dequant_epilogue``), so their outputs are equal bit for bit:
+
+* ``fused`` — the fused level GEMM, :mod:`.fused_qgemm`;
+* ``implicit`` — the implicit-GEMM conv, :mod:`.conv_implicit`;
+* ``faithful`` — the paper's Eq. (1): the activation levels packed into
+  bit planes on the card (:mod:`.quantpack`, levels in), the weight planes
+  packed once at plan compile, AND + popcount in :mod:`.bitgemm`;
+* ``int8`` and ``int8_planewise`` — the products on :mod:`.bitgemm_mxu`'s
+  s8 kernel, on the nibble groups of the levels or on single plane pairs;
+* ``planes``, ``packed`` and ``f32dot`` — plain PyTorch, as the reference
+  computes them in XLA (``f32dot`` a float32 matmul, TF32 off).
+
+:func:`quant_dense_kernel` is the float-in entry point: quantize + pack on
+the card, then the faithful or the MXU path.
 
 An unpinned call takes the compute target's cost model.  Not ported yet:
 the reference's dense and attention plan tables (they serve the LM compile
@@ -21,13 +32,19 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import bitplane
+from repro_torch.core.and_accum import (_ENGINES, _nibble_split,
+                                        dequant_epilogue, epilogue_scales,
+                                        f32dot_exact, int32_exact)
 from repro_torch.core.conv_lowering import _out_hw, im2col_sliced
+from .bitgemm import bitgemm_packed, bitgemm_packed_plain
+from .bitgemm_mxu import int8_exact, int8_matmul, int8_matmul_plain
 from .conv_implicit import conv_implicit, conv_implicit_plain
 from .fused_qgemm import fused_qgemm, fused_qgemm_plain
+from .quantpack import quantize_pack as _quantize_pack, quantize_pack_plain
 
-PORTED_ENGINES = ("fused", "implicit")
-UNPORTED_ENGINES = ("faithful", "planes", "packed", "int8",
-                    "int8_planewise", "f32dot")
+ENGINES = ("fused", "implicit", "faithful", "planes", "packed", "int8",
+           "int8_planewise", "f32dot")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,20 +92,24 @@ def engine_feasible(engine: str, m: int, k: int, n: int, a_bits: int,
     """Can ``engine`` realize this problem on ``target``?  ``(ok, reason)``."""
     from repro_torch.api.targets import (IMPLICIT_PADDINGS, IMPLICIT_STRIDES,
                                          get_target)
-    from repro_torch.core.and_accum import int32_exact
 
-    if engine in UNPORTED_ENGINES:
-        return False, (f"engine {engine!r} is not yet ported to "
-                       f"{target!r} (ported: {', '.join(PORTED_ENGINES)})")
-    if engine not in PORTED_ENGINES:
+    if engine not in ENGINES:
         return False, f"unknown engine {engine!r}"
     if not (a_bits <= 8 and w_bits <= 8):
         return False, (f"the kernels take uint8 levels (a_bits={a_bits}, "
                        f"w_bits={w_bits})")
+    if engine == "faithful":   # the kernel sums whole words of K
+        k = -(-k // bitplane.LANE) * bitplane.LANE
     if not int32_exact(k, a_bits, w_bits):
         return False, (f"int32 accumulator may overflow at K={k}, "
                        f"a_bits={a_bits}, w_bits={w_bits}")
-    if engine == "fused":
+    if engine in ("int8", "int8_planewise") and not int8_exact(k):
+        return False, (f"an s8 x s8 partial sum may overflow int32 at K={k}")
+    if engine == "f32dot" and not f32dot_exact(k, a_bits, w_bits):
+        return False, (f"f32dot inexact at K={k}, a_bits={a_bits}, "
+                       f"w_bits={w_bits} (accumulator exceeds the fp32 "
+                       "mantissa)")
+    if engine != "implicit":
         return True, ""
     if conv is None:
         return False, "implicit is a conv engine (no conv geometry here)"
@@ -106,16 +127,89 @@ def engine_feasible(engine: str, m: int, k: int, n: int, a_bits: int,
 
 
 # ---------------------------------------------------------------------------
+# The level GEMM engines on the kernels
+# ---------------------------------------------------------------------------
+
+def pack_weight_planes(w_lv: torch.Tensor, w_bits: int) -> torch.Tensor:
+    """(K, N) weight levels -> (w_bits, N, ceil(K/32)) packed planes, the
+    faithful kernel's weight operand (pre-transposed, as the reference's
+    kernel takes it).  Plain PyTorch, as the reference packs its weights
+    in XLA; a compiled plan packs them once."""
+    return bitplane.decompose_packed(w_lv.T, w_bits).contiguous()
+
+
+def quantize_pack(a: torch.Tensor, bits: int, *, reference: bool = False):
+    """Fused quantize + pack (kernel): (M, K) float32 activations or uint8
+    levels -> ``(levels uint8, planes int32 (bits, M, ceil(K/32)))``."""
+    return (quantize_pack_plain if reference else _quantize_pack)(a, bits)
+
+
+def bitgemm_faithful(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                     w_bits: int, *, w_planes: torch.Tensor | None = None,
+                     reference: bool = False) -> torch.Tensor:
+    """Paper-faithful path: pack the activation levels into planes
+    (``quantize_pack``, levels in), AND + popcount (``bitgemm_packed``).
+    ``w_planes``: the weights already packed (:func:`pack_weight_planes`);
+    packed here when None."""
+    if w_planes is None:
+        w_planes = pack_weight_planes(w_lv, w_bits)
+    _, a_planes = quantize_pack(a_lv.to(torch.uint8).contiguous(), a_bits,
+                                reference=reference)
+    gemm = bitgemm_packed_plain if reference else bitgemm_packed
+    return gemm(a_planes, w_planes, a_bits=a_bits, w_bits=w_bits)
+
+
+def _as_int8(x: torch.Tensor) -> torch.Tensor:
+    """Levels below 128 as an int8 operand (uint8 reinterpreted, no copy)."""
+    x = x.view(torch.int8) if x.dtype == torch.uint8 else x.to(torch.int8)
+    return x.contiguous()
+
+
+def bitgemm_mxu(a_lv: torch.Tensor, w_lv: torch.Tensor, a_bits: int,
+                w_bits: int, *, reference: bool = False) -> torch.Tensor:
+    """The int8 engine on the s8 kernel: one product per pair of nibble
+    groups (one product in all for levels of at most 7 bits)."""
+    mm = int8_matmul_plain if reference else int8_matmul
+    w_groups = [(_as_int8(g), s) for g, s in _nibble_split(w_lv, w_bits)]
+    parts = [(mm(_as_int8(ga), gw), sa + sw)
+             for ga, sa in _nibble_split(a_lv, a_bits) for gw, sw in w_groups]
+    return _shift_sum(parts)
+
+
+def _shift_sum(parts) -> torch.Tensor:
+    """``sum(d << s)`` over (int32 product, shift) pairs, accumulated into
+    the first (unshifted) product in place."""
+    out = parts[0][0]
+    for d, s in parts[1:]:
+        out += d << s
+    return out
+
+
+def bitgemm_mxu_planewise(a_lv: torch.Tensor, w_lv: torch.Tensor,
+                          a_bits: int, w_bits: int, *,
+                          reference: bool = False) -> torch.Tensor:
+    """The int8_planewise engine on the s8 kernel: one product per plane
+    pair, shifted by m+n (Eq. 1 with the CMP done by the product)."""
+    mm = int8_matmul_plain if reference else int8_matmul
+    pa = bitplane.decompose(a_lv, a_bits).to(torch.int8)
+    pw = bitplane.decompose(w_lv, w_bits).to(torch.int8)
+    return _shift_sum([(mm(pa[m], pw[n]), m + n) for m in range(a_bits)
+                       for n in range(w_bits)])
+
+
+# ---------------------------------------------------------------------------
 # Serve entry points
 # ---------------------------------------------------------------------------
 
 def quant_dense_serve(a_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                       a_bits: int, w_bits: int, engine: str | None = None,
+                      w_planes: torch.Tensor | None = None,
                       reference: bool = False) -> torch.Tensor:
     """Dense on pre-quantized operands: (M, K) uint8 activation levels x
-    (K, N) uint8 weight levels -> (M, N) float32.
+    (K, N) uint8 weight levels -> (M, N) float32.  ``w_planes``: the
+    weights packed for the faithful engine (packed per call when None).
 
-    ``reference=True`` runs the kernel's plain version on whatever device
+    ``reference=True`` runs the kernels' plain versions on whatever device
     the operands live on — the caller's explicit request for the oracle
     (used to hold the card's kernels against their plain versions), never
     a fallback."""
@@ -123,21 +217,36 @@ def quant_dense_serve(a_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     n = w_lv.shape[1]
     if engine is None:
         engine = select_engine(m, k, n, a_bits, w_bits)
-    if engine != "fused":
-        raise ValueError(f"dense engine {engine!r} is not yet ported "
-                         f"(ported: 'fused')")
-    fn = fused_qgemm_plain if reference else fused_qgemm
-    return fn(a_lv, w_lv, s_w, z_w, a_bits=a_bits, w_bits=w_bits,
-              a_is_levels=True)
+    if engine == "fused":
+        fn = fused_qgemm_plain if reference else fused_qgemm
+        return fn(a_lv, w_lv, s_w, z_w, a_bits=a_bits, w_bits=w_bits,
+                  a_is_levels=True)
+    if engine == "faithful":
+        acc = bitgemm_faithful(a_lv, w_lv, a_bits, w_bits, w_planes=w_planes,
+                               reference=reference)
+    elif engine == "int8":
+        acc = bitgemm_mxu(a_lv, w_lv, a_bits, w_bits, reference=reference)
+    elif engine == "int8_planewise":
+        acc = bitgemm_mxu_planewise(a_lv, w_lv, a_bits, w_bits,
+                                    reference=reference)
+    elif engine in _ENGINES:   # planes, packed, f32dot: plain PyTorch
+        acc = _ENGINES[engine](a_lv, w_lv, a_bits, w_bits)
+    else:
+        raise ValueError(f"unknown dense engine {engine!r} (engines: "
+                         f"{', '.join(e for e in ENGINES if e != 'implicit')})")
+    s, t = epilogue_scales(a_bits, s_w, z_w)
+    return dequant_epilogue(acc, a_lv.sum(dim=1, dtype=torch.int32), s, t)
 
 
 def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                      kh: int, kw: int, stride: int = 1, padding: str = "SAME",
                      a_bits: int, w_bits: int, engine: str | None = None,
+                     w_planes: torch.Tensor | None = None,
                      reference: bool = False) -> torch.Tensor:
     """Conv on pre-quantized operands: (B,H,W,Cin) uint8 levels, (kh*kw*Cin,
     Cout) uint8 weight levels -> (B,OH,OW,Cout) float32.  ``implicit`` never
-    materializes patches; ``fused`` lowers through ``im2col_sliced``."""
+    materializes patches; every other engine lowers through
+    ``im2col_sliced`` to :func:`quant_dense_serve`."""
     b, h, w, cin = x_lv.shape
     cout = w_lv.shape[1]
     oh, ow = _out_hw(h, w, kh, kw, stride, padding)
@@ -152,8 +261,39 @@ def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     patches = im2col_sliced(x_lv, kh, kw, stride, padding)
     out = quant_dense_serve(patches.reshape(-1, kh * kw * cin), w_lv, s_w,
                             z_w, a_bits=a_bits, w_bits=w_bits, engine=engine,
-                            reference=reference)
+                            w_planes=w_planes, reference=reference)
     return out.reshape(b, oh, ow, cout)
+
+
+def quant_dense_kernel(a: torch.Tensor, w: torch.Tensor, a_bits: int,
+                       w_bits: int, path: str = "mxu", *,
+                       reference: bool = False) -> torch.Tensor:
+    """Float-in quantized dense on the kernels: quantize + pack, then
+    AND + popcount (``path="faithful"``) or the s8 products on the levels
+    (``path="mxu"``), then the shared epilogue.  ``a`` (..., K) float, ``w``
+    (K, N) float, quantized here with ``weight_levels``."""
+    from repro_torch.core.quant import weight_levels
+
+    if path not in ("mxu", "faithful"):
+        raise ValueError(f"quant_dense_kernel: path must be 'mxu' or "
+                         f"'faithful', got {path!r}")
+    if not (1 <= a_bits <= 8 and 1 <= w_bits <= 8):
+        raise ValueError(f"quant_dense_kernel: bit widths must be 1..8, got "
+                         f"a={a_bits} w={w_bits}")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1]).to(torch.float32).contiguous()
+    a_lv, a_planes = quantize_pack(a2, a_bits, reference=reference)
+    w_lv, s_w, z_w = weight_levels(w, w_bits)
+    w_lv = w_lv.to(torch.uint8)
+    if path == "faithful":
+        gemm = bitgemm_packed_plain if reference else bitgemm_packed
+        acc = gemm(a_planes, pack_weight_planes(w_lv, w_bits), a_bits=a_bits,
+                   w_bits=w_bits)
+    else:
+        acc = bitgemm_mxu(a_lv, w_lv, a_bits, w_bits, reference=reference)
+    s, t = epilogue_scales(a_bits, float(s_w), float(z_w))
+    out = dequant_epilogue(acc, a_lv.sum(dim=1, dtype=torch.int32), s, t)
+    return out.reshape(lead + (w.shape[-1],)).to(a.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -88,10 +88,20 @@ def test_cuda_implicit_bound_is_the_kernels_shared_memory():
     assert get_target("gpu") is t
 
 
-@pytest.mark.parametrize("engine", ops.UNPORTED_ENGINES)
+@pytest.mark.parametrize("engine", ["faithful", "planes", "packed", "int8",
+                                    "int8_planewise", "f32dot"])
 def test_unported_engines_raise_plan_error(engine):
+    """No dense engine is left unported: each engine the first slices
+    refused now compiles on the ``cuda`` target as an explicit override,
+    and where it is infeasible it still raises PlanError naming the
+    layer."""
     q = dataclasses.replace(quant.W1A4, engine=engine)
-    with pytest.raises(plan_mod.PlanError, match="not yet ported"):
+    plan = plan_mod.compile_model(None, cnn.svhn_cnn_spec(8), q,
+                                  target="cuda", img_hw=16)
+    assert {lp.engine for lp in plan.layers if not lp.fp} == {engine}
+    q = dataclasses.replace(quant.W1A4, a_bits=16, engine=engine)
+    with pytest.raises(plan_mod.PlanError,
+                       match=r"layer 1 \(conv1.*uint8 levels"):
         plan_mod.compile_model(None, cnn.svhn_cnn_spec(8), q, target="cuda",
                                img_hw=16)
 

@@ -9,6 +9,9 @@ Run on the card with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Kernel and plain version must agree bit for bit, full epilogue included:
 both round ``s*acc`` and ``t*rowsum`` separately in float32.  The
+bit-plane kernels' outputs are integers (levels, packed words, int32
+accumulators) and agree exactly, and every engine's svhn logits equal the
+default engines' bit for bit.  The
 attention kernels agree with their plain versions within 1e-5 x max|v| in
 float32 (the same integer logits; exp and the sums run in another order),
 plus one output rounding in bfloat16.
@@ -20,11 +23,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.quant import PAPER_CONFIGS  # noqa: E402
-from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import _lib, ops  # noqa: E402
+from repro_torch.kernels.bitgemm import (bitgemm_packed,  # noqa: E402
+                                         bitgemm_packed_plain)
+from repro_torch.kernels.bitgemm_mxu import (int8_matmul,  # noqa: E402
+                                             int8_matmul_plain)
 from repro_torch.kernels.conv_implicit import (conv_implicit,  # noqa: E402
                                                conv_implicit_plain)
 from repro_torch.kernels.fused_qgemm import (fused_qgemm,  # noqa: E402
                                              fused_qgemm_plain)
+from repro_torch.kernels.quantpack import (quantize_pack,  # noqa: E402
+                                           quantize_pack_plain)
 from repro_torch.models.cnn import init_cnn, svhn_cnn_spec  # noqa: E402
 from repro_torch.kernels import attn_flash as A  # noqa: E402
 
@@ -101,7 +110,9 @@ def test_wrappers_count_launches_only_for_the_kernel(cuda_device):
     conv_implicit_plain(x, w, 1.0, 0.0, kh=3, kw=3, a_bits=4, w_bits=1)
     torch.cuda.synchronize()
     assert _lib.LAUNCHES == {"fused_qgemm": 1, "conv_implicit": 1,
-                             "attn_flash": 0, "attn_paged": 0}
+                             "attn_flash": 0, "attn_paged": 0,
+                             "quantize_pack": 0, "bitgemm_packed": 0,
+                             "int8_matmul": 0}
 
 
 @pytest.mark.gpu
@@ -118,13 +129,121 @@ def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
     want = {"fused_qgemm": engines.count("fused"),
             "conv_implicit": engines.count("implicit")}
     assert want == {"fused_qgemm": 5, "conv_implicit": 1}
-    want.update(attn_flash=0, attn_paged=0)
+    want.update(attn_flash=0, attn_paged=0, quantize_pack=0,
+                bitgemm_packed=0, int8_matmul=0)
     _lib.reset_launches()
     got = compiled.forward(x)
     assert _lib.LAUNCHES == want
     ref = compiled.forward(x, reference=True)
     assert _lib.LAUNCHES == want
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# bit-plane kernels: quantize_pack, bitgemm_packed, int8_matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k", [(5, 70), (3, 33), (130, 1), (800, 2304),
+                                 (8, 9216)])
+def test_quantize_pack_kernel_matches_plain(cuda_device, bits, m, k):
+    rs = np.random.RandomState(m * bits + k)
+    n = (1 << bits) - 1
+    a = rs.uniform(-0.3, 1.3, (m, k)).astype(np.float32)
+    a[0] = ((rs.randint(0, n + 1, k) + 0.5) / n).astype(np.float32)  # ties
+    a = torch.from_numpy(a).to(cuda_device)
+    lv, pk = quantize_pack(a, bits)
+    ref_lv, ref_pk = quantize_pack_plain(a, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(lv, ref_lv) and torch.equal(pk, ref_pk)
+    lv2, pk2 = quantize_pack(ref_lv, bits)     # levels in
+    torch.cuda.synchronize()
+    assert lv2 is ref_lv and torch.equal(pk2, ref_pk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ab,wb", [(1, 1), (4, 1), (8, 1), (2, 2), (3, 5),
+                                   (8, 8)])
+@pytest.mark.parametrize("m,k,n", [(5, 70, 9), (70, 1000, 130),
+                                   (130, 33, 65), (8, 9216, 96)])
+def test_bitgemm_packed_kernel_matches_plain(cuda_device, ab, wb, m, k, n):
+    rs = np.random.RandomState(m + 7 * ab + wb)
+    a = torch.from_numpy(rs.randint(0, 1 << ab, (m, k)).astype(np.uint8))
+    w = torch.from_numpy(rs.randint(0, 1 << wb, (k, n)).astype(np.uint8))
+    a, w = a.to(cuda_device), w.to(cuda_device)
+    ap = quantize_pack_plain(a, ab)[1]
+    wp = ops.pack_weight_planes(w, wb)
+    got = bitgemm_packed(ap, wp, a_bits=ab, w_bits=wb)
+    ref = bitgemm_packed_plain(ap, wp, a_bits=ab, w_bits=wb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(ref.double(), a.double() @ w.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(5, 70, 9), (130, 600, 140),
+                                   (8, 9216, 96), (800, 256, 512),
+                                   (33, 17, 3)])
+def test_int8_matmul_kernel_matches_plain_signed(cuda_device, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k)
+    a = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8,
+                      device=cuda_device)
+    b = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8,
+                      device=cuda_device)
+    a[0] = -128
+    b[:, 0] = -128
+    got = int8_matmul(a, b)
+    ref = int8_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_bitplane_wrappers_count_launches_only_for_the_kernel(cuda_device):
+    a = torch.randint(0, 16, (40, 100), dtype=torch.uint8, device=cuda_device)
+    w = torch.randint(0, 2, (100, 24), dtype=torch.uint8, device=cuda_device)
+    _lib.reset_launches()
+    for reference in (False, True):
+        ops.bitgemm_faithful(a, w, 4, 1, reference=reference)
+        ops.bitgemm_mxu(a, w, 4, 1, reference=reference)
+        ops.bitgemm_mxu(a, w, 8, 1, reference=reference)   # 2 nibble groups
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES == {"fused_qgemm": 0, "conv_implicit": 0,
+                             "attn_flash": 0, "attn_paged": 0,
+                             "quantize_pack": 1, "bitgemm_packed": 1,
+                             "int8_matmul": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["faithful", "int8", "int8_planewise",
+                                    "planes", "packed", "f32dot"])
+@pytest.mark.parametrize("qname", ["w1a1", "w1a4", "w1a8"])
+def test_svhn_engines_on_card_equal_default_engines(cuda_device, engine,
+                                                    qname):
+    """Every engine's svhn logits on the card equal its plain versions'
+    and the default engines' (fused/implicit) bit for bit."""
+    import dataclasses
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    spec = svhn_cnn_spec(32)
+    params = init_cnn(gen, spec)
+    x = torch.rand((4, 40, 40, 3), generator=gen, device=cuda_device)
+    q = PAPER_CONFIGS[qname]
+    default = api.build(spec, q, params=params).compile(
+        target="cuda", batch_hints=(4,)).forward(x)
+    compiled = api.build(spec, dataclasses.replace(q, engine=engine),
+                         params=params).compile(target="cuda",
+                                                batch_hints=(4,))
+    _lib.reset_launches()
+    got = compiled.forward(x)
+    torch.cuda.synchronize()
+    per_layer = {"faithful": {"quantize_pack": 1, "bitgemm_packed": 1},
+                 "int8": {"int8_matmul": 2 if qname == "w1a8" else 1},
+                 "int8_planewise": {"int8_matmul": q.a_bits}}.get(engine, {})
+    assert _lib.LAUNCHES == {k: 6 * per_layer.get(k, 0) for k in _lib.LAUNCHES}
+    assert torch.equal(got, compiled.forward(x, reference=True))
+    assert torch.equal(got, default)
 
 
 # ---------------------------------------------------------------------------
