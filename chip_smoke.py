@@ -24,8 +24,17 @@ Phases, each of which makes the script exit nonzero when it fails:
    the LM kernels (``attn_flash`` at the bucket prefill's shape and one
    window shape, ``attn_paged`` at a decode step and a prefill chunk) are
    held against their plain versions within 1e-5 x max|v| on float32
-   inputs (and one bfloat16 rounding on bfloat16 ones) and timed in
-   bfloat16, the main path's type;
+   inputs (and one bfloat16 rounding on bfloat16 ones, in max and in each
+   element against the plain float32 result: ``bf16_elementwise_worst``)
+   and timed in bfloat16, the main path's type; the rows also carry the
+   time of the kernels before their redesign (``prev_ms``, a constant of
+   this script, not measured by the run and kept out of the ``kernels``
+   line);
+   each row counts the device operations of one call
+   (``device_ops_per_call``: at most 3 for ``attn_flash``, 2 for
+   ``attn_paged``), and ``attn_paged`` is also held and timed at a decode
+   step over 128-page tables (2048 tokens a slot; not a main-path shape,
+   so outside the ``kernels`` line's sums);
 4. CNN main path: through ``build -> compile(target="cuda") ->
    serve(max_batch=8)`` at W1A4 and W1A8, full-width svhn answers a
    16-request correctness set three times over (logits exactly equal to
@@ -78,6 +87,7 @@ import torch  # noqa: E402
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12    # non-tensor-core float32
+PEAK_BF16_FLOPS = 989e12   # bf16 dense tensor cores (attention's P @ V)
 # alone vs batched only: a request's logits may move by level flips at
 # exact .5 boundaries when the library reductions and convolutions around
 # the kernels change summation order with the batch size; the JAX
@@ -121,6 +131,21 @@ LM_MARGIN_TOL = 0.05
 # integers times the same scale, so only the order of exp and the sums
 # differs; bfloat16 outputs add one rounding of the output
 ATTN_TOL_F32, ATTN_TOL_BF16 = 1e-5, 2.0 ** -7   # x max|v|
+# device operations one call of each attention wrapper may make (its
+# kernels; no PyTorch op beside them), counted with torch.profiler
+ATTN_MAX_DEVICE_OPS = {"attn_flash": 3, "attn_paged": 2}
+# each attention case's kernel ms before the kernels' redesign: constants
+# from this script at the parent commit of the redesign (NVIDIA H100 80GB
+# HBM3, 700.00 W), printed as ``prev_ms`` on the KERNEL rows and never
+# measured by this run; the 128-page case did not exist then
+ATTN_PREV_MS = {"bucket prefill": 1.039983993768692,
+                "window 256": 0.2771487981081009,
+                "decode step": 0.187896532813708,
+                "prefill chunk": 0.2726954648892085}
+
+
+PREV_MS_SOURCE = ("constant ATTN_PREV_MS: the kernels before their "
+                  "redesign, not measured by this run")
 
 
 class SmokeFailure(RuntimeError):
@@ -164,12 +189,14 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound_ms(ops: float, nbytes: float, fp32_flops: float = 0.0
-             ) -> tuple[float, str]:
+def bound_ms(ops: float, nbytes: float, fp32_flops: float = 0.0,
+             bf16_flops: float = 0.0) -> tuple[float, str]:
     """Larger of bytes over the memory rate and the arithmetic: int8
-    operations at the int8 tensor-core rate plus float32 operations at the
-    non-tensor float32 rate."""
-    t_ops = (ops / PEAK_INT8_OPS + fp32_flops / PEAK_FP32_FLOPS) * 1e3
+    operations at the int8 tensor-core rate, plus float32 operations at the
+    non-tensor float32 rate, plus bf16 operations at the bf16 tensor-core
+    rate."""
+    t_ops = (ops / PEAK_INT8_OPS + fp32_flops / PEAK_FP32_FLOPS
+             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -451,11 +478,13 @@ def _kept_pairs(sq: int, causal: bool, window) -> int:
     return int(m.sum())
 
 
-def _paged_case(dev, gen, rs, *, b, s, hp, hkv, hd, ps, np_, p, idle=0):
+def _paged_case(dev, gen, rs, *, b, s, hp, hkv, hd, ps, np_, p, idle=0,
+                full=False):
     """Stale float32 pools, ragged page tables padded with the null page,
     ppos written for each slot's live positions and query rows at those
     positions.  ``idle`` trailing slots have no pages and q_pos -1 (idle
-    decode slots); with s > 1 the last slot's final rows are padding."""
+    decode slots); with s > 1 the last slot's final rows are padding;
+    ``full`` fills every slot's whole table (p * ps tokens)."""
     pk = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=dev)
     pv = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=dev)
     pk[np_], pv[np_] = 0.0, 0.0
@@ -464,11 +493,11 @@ def _paged_case(dev, gen, rs, *, b, s, hp, hkv, hd, ps, np_, p, idle=0):
     q_pos = np.full((b, s), -1, np.int32)
     pages = list(rs.permutation(np_))
     for i in range(b - idle):
-        n_tok = int(rs.randint(s, p * ps + 1))
-        own = [pages.pop() for _ in range(-(-n_tok // ps))]
+        n_tok = p * ps if full else int(rs.randint(s, p * ps + 1))
+        own = np.array([pages.pop() for _ in range(-(-n_tok // ps))])
         table[i, :len(own)] = own
-        for t in range(n_tok):
-            ppos[own[t // ps], t % ps] = t
+        t = np.arange(n_tok)
+        ppos[own[t // ps], t % ps] = t
         q_pos[i] = np.arange(n_tok - s, n_tok)
     if s > 1:
         q_pos[b - idle - 1, s - s // 3:] = -1
@@ -485,7 +514,26 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
     the table and expanded for GQA)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.attn_flash import attn_flash, attn_paged
+
+    def bf16_elementwise(tag, got, ref32, vmax) -> float:
+        """Worst |got - ref| / (ATTN_TOL_BF16 |ref| + ATTN_TOL_F32 max|v|)
+        of a bf16 output against the plain version's float32 result on the
+        same (upcast) inputs: one output rounding is at most 2^-8 |ref|."""
+        d = (got.float() - ref32).abs()
+        worst = float((d / (ATTN_TOL_BF16 * ref32.abs()
+                            + ATTN_TOL_F32 * vmax)).max())
+        check(worst <= 1.0, f"{tag} bf16: an element is off its float32 "
+                            f"plain result by {worst} x its tolerance")
+        return worst
+
+    def device_ops(name, case, fn) -> int:
+        n = _lib.count_device_ops(fn)
+        check(1 <= n <= ATTN_MAX_DEVICE_OPS[name],
+              f"{name} {case}: {n} device operations per call (at most "
+              f"{ATTN_MAX_DEVICE_OPS[name]})")
+        return n
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -510,6 +558,10 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
         tol_b = ATTN_TOL_BF16 * float(vb.float().abs().max())
         check(err_b <= tol_b, f"attn_flash {case} bf16: max abs {err_b} > "
                               f"{tol_b}")
+        elem_b = bf16_elementwise(
+            f"attn_flash {case}", got_b, attn_flash(
+                qb.float(), kb.float(), vb.float(), reference=True, **kw),
+            float(vb.float().abs().max()))
         pairs = b * h * _kept_pairs(sq, True, window)
         nbytes = 4 * b * sq * h * hd * 2      # q, k, v in, out, bf16
         t = [x.transpose(1, 2).contiguous() for x in (qb, kb, vb)]
@@ -523,24 +575,32 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
                 *t, is_causal=True)
         row = dict(case=case, shape=[b, sq, h, hd], window=window,
                    max_abs_err=err, tol=tol, max_abs_err_bf16=err_b,
-                   tol_bf16=tol_b,
+                   tol_bf16=tol_b, bf16_elementwise_worst=elem_b,
                    ms=time_ms(lambda: attn_flash(qb, kb, vb, **kw), 20, flush),
                    plain_ms=time_ms(lambda: attn_flash(
                        qb, kb, vb, reference=True, **kw), 3, flush),
                    library_call="F.scaled_dot_product_attention bf16",
-                   library_ms=time_ms(lib, 20, flush))
-        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * hd * pairs, nbytes,
-                                                    2.0 * hd * pairs)
+                   library_ms=time_ms(lib, 20, flush),
+                   prev_ms=ATTN_PREV_MS[case],
+                   prev_ms_source=PREV_MS_SOURCE,
+                   device_ops_per_call=device_ops(
+                       "attn_flash", case,
+                       lambda: attn_flash(qb, kb, vb, **kw)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * hd * pairs, nbytes, bf16_flops=2.0 * hd * pairs)
         summary["attn_flash"].append(row)
         print("KERNEL attn_flash", json.dumps(row), flush=True)
 
     p_tab = -(-(CONT_PROMPTS[1] + CONT_HORIZONS[1]) // CONT_PAGE)
-    for case, (b, s, idle) in (("decode step", (CONT_SLOTS, 1, 1)),
-                               ("prefill chunk", (1, CONT_PAGE, 0))):
+    for case, (b, s, idle, p, np_, full) in (
+            ("decode step", (CONT_SLOTS, 1, 1, p_tab, CONT_PAGES, False)),
+            ("prefill chunk", (1, CONT_PAGE, 0, p_tab, CONT_PAGES, False)),
+            ("decode step, 128-page tables",
+             (CONT_SLOTS, 1, 0, 128, CONT_SLOTS * 128 + 16, True))):
         hp, hkv, hd = 15, 5, 64
         q, pk, pv, ppos, table, q_pos = _paged_case(
             dev, gen, rs, b=b, s=s, hp=hp, hkv=hkv, hd=hd, ps=CONT_PAGE,
-            np_=CONT_PAGES, p=p_tab, idle=idle)
+            np_=np_, p=p, idle=idle, full=full)
         kw = dict(causal=True, quantized=True, n_q_heads=hp)
         valid = q_pos >= 0
         errs = {}
@@ -553,15 +613,23 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
             torch.cuda.synchronize()
             tol = rel * float(args[2].float().abs().max())
             e_valid = float((got[valid] - ref[valid]).abs().max())
-            e_pad = float((got[~valid] - ref[~valid]).abs().max())
+            e_pad = (float((got[~valid] - ref[~valid]).abs().max())
+                     if bool((~valid).any()) else 0.0)
             check(e_valid <= tol and e_pad <= tol,
                   f"attn_paged {case} {dtype}: max abs {e_valid} (valid "
                   f"rows), {e_pad} (padding rows) > {tol}")
             errs[str(dtype).split(".")[1]] = (e_valid, e_pad, tol)
+        bq, bk, bv = (x.bfloat16() for x in (q, pk, pv))
+        elem_b = bf16_elementwise(
+            f"attn_paged {case}",
+            attn_paged(bq, bk, bv, ppos, table, q_pos, **kw),
+            attn_paged(bq.float(), bk.float(), bv.float(), ppos, table, q_pos,
+                       reference=True, **kw),
+            float(bv.float().abs().max()))
         args = (q.bfloat16(), pk.bfloat16(), pv.bfloat16(), ppos, table,
                 q_pos)
         tl = table.long()
-        live = tl != CONT_PAGES
+        live = tl != np_
         pos_g = ppos[tl].reshape(b, -1)                    # (B, P*ps)
         keep = ((pos_g[:, None, :] >= 0)
                 & (pos_g[:, None, :] <= q_pos[:, :, None]) & valid[..., None])
@@ -577,21 +645,27 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
         vg = args[2][tl].reshape(b, -1, hkv, hd)[:, :, idx].transpose(1, 2)
         qt = args[0].transpose(1, 2)
         mask = keep[:, None]
-        row = dict(case=case, slots=b, rows=s, heads=[hp, hkv], head_dim=hd,
-                   page_size=CONT_PAGE, table_pages=p_tab, live_pages=n_live,
+        row = dict(case=case, main_path=not full, slots=b, rows=s,
+                   heads=[hp, hkv], head_dim=hd,
+                   page_size=CONT_PAGE, table_pages=p, live_pages=n_live,
                    kept_pairs=pairs, max_abs_err=errs["float32"][0],
                    max_abs_err_padding_rows=errs["float32"][1],
                    tol=errs["float32"][2], max_abs_err_bf16=errs["bfloat16"][0],
                    tol_bf16=errs["bfloat16"][2],
+                   bf16_elementwise_worst=elem_b,
                    ms=time_ms(lambda: attn_paged(*args, **kw), 30, flush),
                    plain_ms=time_ms(lambda: attn_paged(
                        *args, reference=True, **kw), 5, flush),
                    library_call="F.scaled_dot_product_attention bf16 on "
                                 "gathered, GQA-expanded K/V",
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                       qt, kg, vg, attn_mask=mask), 30, flush))
-        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * hd * pairs, nbytes,
-                                                    2.0 * hd * pairs)
+                       qt, kg, vg, attn_mask=mask), 30, flush),
+                   prev_ms=ATTN_PREV_MS.get(case),
+                   prev_ms_source=PREV_MS_SOURCE,
+                   device_ops_per_call=device_ops(
+                       "attn_paged", case, lambda: attn_paged(*args, **kw)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * hd * pairs, nbytes, bf16_flops=2.0 * hd * pairs)
         summary["attn_paged"].append(row)
         print("KERNEL attn_paged", json.dumps(row), flush=True)
     return summary
@@ -1144,10 +1218,15 @@ def lm_profiles(params, cfg, layers, cont_engine) -> dict:
     return out
 
 
+PORT_KERNELS = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
+                "quantize_pack", "bitgemm_packed", "int8_matmul")
+
+
 def _kernel_label(name: str) -> str:
-    for k in ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
-              "quantize_pack", "bitgemm_packed", "int8_matmul"):
-        if f"{k}_kernel" in name:
+    """The port kernel a device kernel belongs to (``attn_flash`` and
+    ``attn_paged`` launch several: ``attn_paged_scales_kernel``...)."""
+    for k in PORT_KERNELS:
+        if f"{k}_" in name and "_kernel" in name:
             return k
     return name[:70]
 
@@ -1178,11 +1257,21 @@ def profile_forward(fn, iters: int) -> dict:
         return dict(wall_ms_per_forward=wall_ms,
                     device_busy_ms_per_forward="not measured")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    port = {}
+    for e in kern:
+        label = _kernel_label(e.key)
+        if label in PORT_KERNELS:
+            ms, calls = port.get(label, (0.0, 0.0))
+            port[label] = (ms + e.self_device_time_total / 1e3 / iters,
+                           calls + e.count / iters)
     return dict(
         iters=iters, wall_ms_per_forward=wall_ms,
         device_busy_ms_per_forward=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
         launches_per_forward=sum(e.count for e in kern) / iters,
+        port_kernels={k: dict(ms_per_forward=ms, launches_per_forward=calls,
+                              share_of_device=ms / busy_ms)
+                      for k, (ms, calls) in port.items()},
         top_kernels=[dict(name=_kernel_label(e.key),
                           ms_per_forward=e.self_device_time_total / 1e3 / iters,
                           calls_per_forward=e.count / iters) for e in top])
@@ -1217,7 +1306,7 @@ def kernels_line(summary: dict, launches: dict) -> dict:
     }
     out = []
     for name, rows in summary.items():
-        timed = [r for r in rows if "ms" in r]
+        timed = [r for r in rows if "ms" in r and r.get("main_path", True)]
         tot = {k: sum(r[k] for r in timed)
                for k in ("ms", "plain_ms", "bound_ms")}
         lib = [r["library_ms"] for r in timed]
@@ -1237,12 +1326,16 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             entry["popc_floor_ms"] = sum(r["popc_floor_ms"] for r in timed)
         if name == "quantize_pack":
             entry["library_call"] = timed[0]["library_call"]
+        if name in ATTN_MAX_DEVICE_OPS:
+            entry["device_ops_per_call"] = max(r["device_ops_per_call"]
+                                               for r in timed)
         entry["shapes"] = [
-            {k: r[k] for k in ("model", "layer", "case", "shape", "a_bits",
-                               "form", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "popc_floor_ms", "library_ms",
-                               "library_call") if k in r}
-            for r in timed]
+            {k: r[k] for k in ("model", "layer", "case", "main_path", "shape",
+                               "a_bits", "form", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "popc_floor_ms",
+                               "library_ms", "library_call",
+                               "device_ops_per_call") if k in r}
+            for r in rows if "ms" in r]
         out.append(entry)
     return {"kernels": out}
 

@@ -103,13 +103,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(kernel: str, argtypes: list):
-    """The C function ``<kernel>_launch`` of the kernel's library (built
+def launcher(kernel: str, argtypes: list, suffix: str = "launch",
+             restype=ctypes.c_int):
+    """The C function ``<kernel>_<suffix>`` of the kernel's library (built
     on first use), with its ctypes signature set."""
-    fn = getattr(library(KERNELS[kernel]), f"{kernel}_launch")
+    fn = getattr(library(KERNELS[kernel]), f"{kernel}_{suffix}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 
@@ -117,3 +118,21 @@ def check_launch(name: str, err: int) -> None:
     """Raise if the C launcher reported a nonzero ``cudaGetLastError()``."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def count_device_ops(fn, calls: int = 4) -> int:
+    """Operations one ``fn()`` puts on the device (kernels, memsets,
+    copies), counted with ``torch.profiler`` over ``calls`` calls and
+    rounded up (the tracer may drop a record at the start of a window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return -(-n // calls)

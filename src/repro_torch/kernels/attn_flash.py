@@ -20,10 +20,16 @@ integer (``attn_flash.py:156-160``), and the logits are that integer times
 Each dispatch entry launches its kernel for CUDA tensors, runs the plain
 version for CPU tensors, and runs the plain version on any device when the
 caller passes ``reference=True`` (an explicit request for the oracle, never
-a fallback).  The per-tensor and per-slot scales and the q levels are
-PyTorch ops before the launch, as the reference computes them outside its
-``pallas_call``; the scales reach the kernels as device pointers, so no
-launch waits on a device-to-host read.
+a fallback).  The reference computes the per-tensor and per-slot scales
+and the q levels outside its ``pallas_call``; here the kernels compute
+them on the card (``attn_flash`` in three launches, ``attn_paged`` in
+two), with the plain version's arithmetic step by step, so the levels are
+the same and no PyTorch op runs beside a launch.  The wrappers allocate
+the outputs and scratch with ``torch.empty`` and do nothing else on the
+device: they take contiguous, 16-byte aligned tensors and int32 index
+tensors as they are, and raise on any other (never a silent copy).  The
+launch plans, scratch and shared-memory layouts live in the ``.cu``
+sources, which export their sizes.
 
 Rows of the paged path whose query position is -1 (chunk padding, idle
 decode slots) see every key masked.  ``attn_paged_xla`` softmaxes such a
@@ -38,6 +44,7 @@ kernel and its oracle.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -53,8 +60,11 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128)
 # shared memory one block may use on an H100 (227 KB)
 SMEM_LIMIT = 232448
-# threads of one csrc/attn_paged.cu block
-PAGED_THREADS = 128
+# key slots of one staged csrc/attn_paged.cu tile (its KT)
+PAGED_KT = 64
+# query rows one attn_paged block aims at once a step has several rows
+# (its BLOCK_ROWS)
+PAGED_BLOCK_ROWS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -204,25 +214,44 @@ def _check_flash(q, k, v, q_bits, k_bits) -> None:
                          f"{k_bits}")
 
 
+def _inv_sqrt(hd: int) -> float:
+    """``1 / sqrt(hd)`` as PyTorch's CUDA division by a Python scalar forms
+    it: the float32 reciprocal of the float32 square root."""
+    return ctypes.c_float(1.0 / ctypes.c_float(math.sqrt(hd)).value).value
+
+
+def _kernel_input(x: torch.Tensor, what: str, index: bool = False) -> int:
+    """The device address of ``x`` as a kernel reads it: contiguous, and
+    16-byte aligned (the kernels load 16 bytes at a time) or, for an index
+    tensor, int32.  Raises rather than copy, so a call stays its
+    kernels."""
+    if index and x.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous (stride {x.stride()})")
+    if not index and x.data_ptr() % 16:
+        raise ValueError(f"{what} must start at a 16-byte aligned address")
+    return x.data_ptr()
+
+
 def _flash_cuda(q, k, v, causal, window, q_bits, k_bits) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
-    s_q, z_q = attn_quant_scale(q, q_bits)
-    s_k, z_k = attn_quant_scale(k, k_bits)
-    qc = (_levels(q, s_q, q_bits) - z_q).to(torch.int8).contiguous()
-    kc = (_levels(k, s_k, k_bits) - z_k).to(torch.int8).contiguous()
-    scale = (s_q * s_k / math.sqrt(hd)).reshape(1)
-    v = v.contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
+    ptrs = [_kernel_input(x, f"attn_flash: {n}")
+            for x, n in ((q, "q"), (k, "k"), (v, "v"))]
+    ll = ctypes.c_longlong
+    nbytes = _lib.launcher(FLASH, [ll], "scratch_bytes", ll)(k.numel())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _lib.launcher(FLASH, [p, p, p, p, p] + [i] * 8 + [p])
+    launch = _lib.launcher(FLASH, [p] * 5 + [i] * 9 + [ctypes.c_float, i, p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(qc.data_ptr(), kc.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), scale.data_ptr(), B, Sq, Skv, H, hd,
-                     int(causal), window or 0, _KERNEL_DTYPES[q.dtype], stream)
+        err = launch(*ptrs, out.data_ptr(), scratch.data_ptr(), B, Sq, Skv,
+                     H, hd, int(causal), window or 0, q_bits, k_bits,
+                     _inv_sqrt(hd), _KERNEL_DTYPES[q.dtype], stream)
     _lib.check_launch(FLASH, err)
     _lib.LAUNCHES[FLASH] += 1
     return out
@@ -304,18 +333,46 @@ def paged_group_heads(hp: int, hkv: int, n_q_heads: int) -> int:
     return max(min(g, hp), hp - (hkv - 1) * g)
 
 
-def paged_smem_bytes(rows: int, head_dim: int, page_size: int) -> int:
-    """Dynamic shared memory of one ``csrc/attn_paged.cu`` block serving
-    ``rows`` = (query heads of its KV head) x S query rows: the rows'
-    levels, one page's K levels, V and positions, the rows' scores,
-    accumulators and (m, l, corr).  Layout must match the kernel's."""
-    return (rows * head_dim                 # q levels, int8
-            + page_size * head_dim          # page's k levels, int8
-            + 4 * page_size * head_dim      # page's v, f32
-            + 4 * page_size                 # page's positions
-            + 4 * rows * page_size          # scores / weights
-            + 4 * rows * head_dim           # accumulators
-            + 12 * rows)                    # m, l, corr
+def paged_heads_per_block(nh: int, s: int) -> int:
+    """Query heads one ``csrc/attn_paged.cu`` block serves: all ``nh`` of
+    its KV head while their ``s`` rows each fit :data:`PAGED_BLOCK_ROWS`
+    (a decode step: the heads share every page load), else as many as do,
+    at least one (a prefill chunk: more blocks, fewer rows a warp)."""
+    return max(1, min(nh, PAGED_BLOCK_ROWS // s))
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(b: int, s: int, hp: int, hkv: int, hd: int, p: int,
+               n_q: int, dtype: torch.dtype) -> tuple[int, tuple]:
+    """``(scratch bytes, (query heads a block, head groups a KV head,
+    pages a split, splits, shared memory bytes a block))``: the launch plan
+    ``csrc/attn_paged.cu`` makes for this shape (``attn_paged_plan``;
+    needs the built kernel)."""
+    plan = (ctypes.c_int * 5)()
+    i = ctypes.c_int
+    fn = _lib.launcher(PAGED, [i] * 8 + [ctypes.POINTER(ctypes.c_int)],
+                       "plan", ctypes.c_longlong)
+    nbytes = fn(b, s, hp, hkv, hd, p, n_q, _KERNEL_DTYPES[dtype], plan)
+    return nbytes, tuple(plan)
+
+
+def paged_smem_bytes(rows: int, head_dim: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one ``csrc/attn_paged.cu`` attention block
+    serving ``rows`` = (its query heads) x S query rows, for
+    pools of ``itemsize`` bytes an element: two staged tiles of
+    :data:`PAGED_KT` key slots (raw K, V and positions), the current
+    tile's K levels and the rows' q levels (rows padded by 16 bytes), the
+    rows' accumulators and (m, l).  The layout is the kernel's
+    ``smem_bytes``; this copy bounds feasibility where the kernel is not
+    built (``ops.paged_attn_bounds``), and the card's tests hold it equal
+    to :func:`paged_plan`'s."""
+    pitch = head_dim + 16
+    return (4 * PAGED_KT * head_dim * itemsize   # K and V tiles, two each
+            + 2 * PAGED_KT * 4                   # their positions
+            + PAGED_KT * pitch                   # the tile's K levels
+            + rows * pitch                       # q levels
+            + 4 * rows * head_dim                # accumulators
+            + 8 * rows)                          # m, l
 
 
 def _check_paged(q, pool_k, pool_v, ppos, table, q_pos, bits, n_q) -> None:
@@ -337,11 +394,6 @@ def _check_paged(q, pool_k, pool_v, ppos, table, q_pos, bits, n_q) -> None:
         raise ValueError(f"attn_paged: head_dim {hd} not in {KERNEL_HEAD_DIMS}")
     if not 1 <= bits <= 8:
         raise ValueError(f"attn_paged: bits must be 1..8, got {bits}")
-    rows = paged_group_heads(Hp, pool_k.shape[2], n_q) * S
-    need = paged_smem_bytes(rows, hd, pool_k.shape[1])
-    if need > SMEM_LIMIT:
-        raise ValueError(f"attn_paged: a block needs {need} B of shared "
-                         f"memory (> {SMEM_LIMIT})")
 
 
 def _paged_cuda(q, pool_k, pool_v, ppos, table, q_pos, causal, window, bits,
@@ -349,29 +401,24 @@ def _paged_cuda(q, pool_k, pool_v, ppos, table, q_pos, causal, window, bits,
     B, S, Hp, hd = q.shape
     _, ps, Hkv, _ = pool_k.shape
     P = table.shape[1]
-    z = float(1 << (bits - 1))
-    table = table.to(torch.int32).contiguous()
-    s_q, s_k = _paged_slot_scales(q, pool_k, ppos, table.long(), bits)
-    qc = (_levels(q, s_q[:, None, None, None], bits) - z).to(
-        torch.int8).contiguous()
-    scal = (s_q * s_k / math.sqrt(hd)).contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    rows = paged_group_heads(Hp, Hkv, n_q) * S
-    smem = paged_smem_bytes(rows, hd, ps)
+    ptrs = [_kernel_input(x, f"attn_paged: {n}", index=ix) for x, n, ix in (
+        (q, "q", False), (pool_k, "pool_k", False), (pool_v, "pool_v", False),
+        (ppos, "ppos", True), (table, "table", True), (q_pos, "q_pos", True))]
+    nbytes, plan = paged_plan(B, S, Hp, Hkv, hd, P, n_q, q.dtype)
+    if plan[4] > SMEM_LIMIT:
+        raise ValueError(f"attn_paged: a block needs {plan[4]} B of shared "
+                         f"memory (> {SMEM_LIMIT})")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _lib.launcher(PAGED, [p] * 9 + [i] * 13 + [p])
-    pk, pv = pool_k.contiguous(), pool_v.contiguous()
-    pp = ppos.to(torch.int32).contiguous()
-    qp = q_pos.to(torch.int32).contiguous()
+    launch = _lib.launcher(PAGED, [p] * 8 + [i] * 11 + [ctypes.c_float, i, p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(qc.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                     pp.data_ptr(), table.data_ptr(), qp.data_ptr(),
-                     s_k.data_ptr(), scal.data_ptr(), out.data_ptr(),
-                     B, S, Hp, Hkv, hd, ps, P, n_q, int(causal), window or 0,
-                     bits, smem, _KERNEL_DTYPES[q.dtype], stream)
+        err = launch(*ptrs, scratch.data_ptr(), out.data_ptr(), B, S, Hp,
+                     Hkv, hd, ps, P, n_q, int(causal), window or 0, bits,
+                     _inv_sqrt(hd), _KERNEL_DTYPES[q.dtype], stream)
     _lib.check_launch(PAGED, err)
     _lib.LAUNCHES[PAGED] += 1
     return out

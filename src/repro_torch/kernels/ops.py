@@ -328,8 +328,9 @@ def paged_attn_bounds(attn: AttnShape, batch: int = 1) -> tuple[bool, str]:
     ``csrc/attn_paged.cu`` block's shared memory fits the card.  The
     reference's bound is a TPU VMEM budget (``PAGED_VMEM_BUDGET``); here it
     is the kernel's own layout, bounded for the worst GQA grouping (every
-    query head on one KV head)."""
-    from .attn_flash import SMEM_LIMIT, paged_smem_bytes
+    query head on one KV head) and float32 pools."""
+    from .attn_flash import (SMEM_LIMIT, paged_heads_per_block,
+                             paged_smem_bytes)
 
     ps = attn.page_size
     if not ps or ps < 1:
@@ -341,7 +342,8 @@ def paged_attn_bounds(attn: AttnShape, batch: int = 1) -> tuple[bool, str]:
     if flat >= (1 << 31):
         return False, (f"flat KV index {flat} overflows int32 "
                        f"(batch={batch}, seq_kv={attn.seq_kv})")
-    need = paged_smem_bytes(attn.heads * attn.seq_q, attn.head_dim, ps)
+    rows = paged_heads_per_block(attn.heads, attn.seq_q) * attn.seq_q
+    need = paged_smem_bytes(rows, attn.head_dim)
     if need > SMEM_LIMIT:
         return False, (f"a paged block needs {need} B of shared memory "
                        f"(> {SMEM_LIMIT})")

@@ -301,16 +301,76 @@ def test_paged_bounds_are_the_kernels_shared_memory():
     ok, _ = ops.paged_attn_bounds(ops.AttnShape(
         seq_q=16, seq_kv=288, heads=15, head_dim=64, page_size=16))
     assert ok
-    bad = ops.AttnShape(seq_q=64, seq_kv=256, heads=32, head_dim=128,
+    # a block serves one query head's rows once they pass 16, so the rows
+    # a block holds grow with the chunk length: 256 rows of hd 128 do not
+    # fit its shared memory
+    bad = ops.AttnShape(seq_q=256, seq_kv=256, heads=32, head_dim=128,
                         page_size=16)
     ok, why = ops.paged_attn_bounds(bad)
     assert not ok and "shared memory" in why
-    assert A.paged_smem_bytes(32 * 64, 128, 16) > A.SMEM_LIMIT
+    assert A.paged_smem_bytes(256, 128) > A.SMEM_LIMIT
+    # the layout (float32 pools, the bound's worst case): 138 rows of
+    # hd 128 fit a block, 139 do not
+    assert A.paged_smem_bytes(138, 128) <= A.SMEM_LIMIT
+    assert A.paged_smem_bytes(139, 128) > A.SMEM_LIMIT
+    assert ops.paged_attn_bounds(ops.AttnShape(
+        seq_q=138, seq_kv=256, heads=5, head_dim=128, page_size=16))[0]
+    assert not ops.paged_attn_bounds(ops.AttnShape(
+        seq_q=139, seq_kv=256, heads=5, head_dim=128, page_size=16))[0]
     assert not ops.paged_attn_bounds(ops.AttnShape(
         seq_q=1, seq_kv=30, heads=4, head_dim=32, page_size=16))[0]
     # the kernel's own grouping: 15 query heads over 5 KV heads -> 3 each
     assert A.paged_group_heads(15, 5, 15) == 3
     assert A.paged_group_heads(8, 2, 6) == 5
+
+
+@pytest.mark.parametrize("nh,s,want", [
+    (3, 1, 3),      # decode: a KV head's 3 query heads share its pages
+    (3, 16, 1),     # a 16-row prefill chunk: a block per query head
+    (3, 5, 3), (3, 6, 2), (32, 1, 16), (1, 64, 1)])
+def test_paged_heads_per_block(nh, s, want):
+    assert A.paged_heads_per_block(nh, s) == want
+
+
+def test_paged_smem_bytes_is_the_kernels_layout():
+    # the main path's prefill chunk in bf16: 3 query heads x 16 rows
+    rows, hd = 48, 64
+    assert A.paged_smem_bytes(rows, hd, 2) == (
+        2 * 2 * 64 * hd * 2         # raw K and V tiles, double-buffered
+        + 2 * 64 * 4                # their positions
+        + 64 * (hd + 16)            # the tile's K levels, padded rows
+        + rows * (hd + 16)          # q levels
+        + 4 * rows * hd             # accumulators
+        + 8 * rows)                 # m, l
+    assert A.paged_smem_bytes(rows, hd, 2) < A.paged_smem_bytes(rows, hd, 4)
+
+
+def test_inv_sqrt_is_the_float32_reciprocal_of_the_float32_root():
+    for hd in A.KERNEL_HEAD_DIMS:
+        want = np.float32(1.0) / np.float32(np.sqrt(hd))
+        assert A._inv_sqrt(hd) == float(want)
+
+
+_BASE = torch.zeros(64, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("x,index,err", [
+    (_BASE[:32].view(2, 16).t(), False, ValueError),     # not contiguous
+    (_BASE[1:17], False, ValueError),                    # 4 bytes past 16
+    (torch.zeros(4, dtype=torch.int64), True, TypeError),
+    (torch.zeros((4, 4), dtype=torch.int32).t(), True, ValueError)])
+def test_kernel_input_refuses_what_it_would_have_to_copy(x, index, err):
+    """The wrappers hand a kernel its tensors as they are: a tensor the
+    kernel cannot read in place raises instead of being copied."""
+    with pytest.raises(err):
+        A._kernel_input(x, "x", index=index)
+
+
+@pytest.mark.parametrize("x,index", [
+    (_BASE[4:20], False),                                # 16 bytes in
+    (torch.zeros((2, 3), dtype=torch.int32)[1:], True)])  # 12 bytes in
+def test_kernel_input_takes_tensors_as_they_are(x, index):
+    assert A._kernel_input(x, "x", index=index) == x.data_ptr()
 
 
 def test_flash_feasibility_needs_quantized_prefill():

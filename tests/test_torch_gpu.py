@@ -16,6 +16,8 @@ attention kernels agree with their plain versions within 1e-5 x max|v| in
 float32 (the same integer logits; exp and the sums run in another order),
 plus one output rounding in bfloat16.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -255,26 +257,45 @@ def _attn_tol(v, dtype):
     return vmax * (1e-5 if dtype == torch.float32 else 2 ** -7)
 
 
+def _assert_bf16_elementwise(got, ref32, v):
+    """Each bf16 output within one rounding of the plain version's float32
+    result: |got - ref| <= 2^-7 |ref| + 1e-5 max|v|."""
+    tol = 2 ** -7 * ref32.abs() + 1e-5 * float(v.float().abs().max())
+    assert bool(((got.float() - ref32).abs() <= tol).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,hd,causal,window", [
-    (2, 300, 3, 64, True, None), (1, 128, 2, 32, False, None),
-    (1, 200, 2, 128, True, None), (2, 256, 15, 64, True, 100)])
+@pytest.mark.parametrize("b,s,h,hd,causal,window,skv", [
+    (2, 300, 3, 64, True, None, None), (1, 128, 2, 32, False, None, None),
+    (1, 200, 2, 128, True, None, None), (2, 256, 15, 64, True, 100, None),
+    # Sq not a multiple of the 64-row tile; Sq < Skv (non-causal); hd 32
+    (1, 100, 2, 32, True, None, None), (1, 70, 2, 64, False, None, 200),
+    (2, 130, 3, 32, True, 40, None)])
 def test_attn_flash_kernel_matches_plain(cuda_device, dtype, b, s, h, hd,
-                                         causal, window):
+                                         causal, window, skv):
     gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
-    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=cuda_device)
-               .to(dtype) for _ in range(3))
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, skv or s, h, hd), generator=gen,
+                        device=cuda_device).to(dtype) for _ in range(2))
     got = A.attn_flash(q, k, v, causal=causal, window=window)
     ref = A.attn_flash(q, k, v, causal=causal, window=window, reference=True)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - ref.float()).abs().max()) <= _attn_tol(v, dtype)
+    if dtype == torch.bfloat16:
+        _assert_bf16_elementwise(got, A.attn_flash(
+            q.float(), k.float(), v.float(), causal=causal, window=window,
+            reference=True), v)
 
 
-def _paged_case(device, gen, *, b, s, hp, hkv, hd, ps, np_, p, dtype):
+def _paged_case(device, gen, *, b, s, hp, hkv, hd, ps, np_, p, dtype,
+                idle=0, pad_slot=None):
     """Stale pools, ragged tables padded with the null page, ppos written
-    for each slot's live positions, slot 0's last row padding (-1)."""
+    for each slot's live positions, slot 0's last row padding (-1).
+    ``idle`` trailing slots have all-null tables and padding rows (idle
+    decode slots); slot ``pad_slot`` keeps its pages but all its rows are
+    padding."""
     pk = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=device)
     pv = torch.randn((np_ + 1, ps, hkv, hd), generator=gen, device=device)
     pk[np_], pv[np_] = 0.0, 0.0
@@ -283,30 +304,43 @@ def _paged_case(device, gen, *, b, s, hp, hkv, hd, ps, np_, p, dtype):
     q_pos = torch.full((b, s), -1, dtype=torch.int32, device=device)
     order = torch.randperm(np_, generator=torch.Generator().manual_seed(b))
     used = 0
-    for i in range(b):
+    for i in range(b - idle):
         n_tok = s + (7 * i + 3) % (p * ps - s)
         own = order[used: used + -(-n_tok // ps)].tolist()
         used += len(own)
         table[i, :len(own)] = torch.tensor(own, dtype=torch.int32)
-        for t in range(n_tok):
-            ppos[own[t // ps], t % ps] = t
+        pos = torch.arange(n_tok, dtype=torch.int32, device=device)
+        ppos[torch.tensor(own, device=device)[pos.long() // ps],
+             pos.long() % ps] = pos
         q_pos[i] = torch.arange(n_tok - s, n_tok, dtype=torch.int32)
     q_pos[0, -1] = -1
+    if pad_slot is not None:
+        q_pos[pad_slot] = -1
     q = torch.randn((b, s, hp, hd), generator=gen, device=device)
     return [x.to(dtype) for x in (q, pk, pv)] + [ppos, table, q_pos]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,hp,hkv,hd,window", [
-    (8, 1, 15, 5, 64, None), (1, 16, 15, 5, 64, None),
-    (3, 4, 3, 1, 32, None), (4, 2, 8, 2, 128, 9)])
+@pytest.mark.parametrize("b,s,hp,hkv,hd,window,p,idle,pad_slot", [
+    (8, 1, 15, 5, 64, None, 6, 0, None), (1, 16, 15, 5, 64, None, 6, 0, None),
+    (3, 4, 3, 1, 32, None, 6, 0, None), (4, 2, 8, 2, 128, 9, 6, 0, None),
+    # 128-page tables: 13 splits of 10 pages, the last of 8
+    (8, 1, 15, 5, 64, None, 128, 1, None),
+    # 201 pages in 51 splits of 4, the last of 1 page; hd 32
+    (2, 3, 4, 4, 32, None, 201, 0, None),
+    # an idle all-null-page slot and a slot whose rows are all padding
+    (4, 2, 6, 2, 64, None, 9, 1, 1),
+    # a window across many splits; hd 128 over several splits
+    (8, 1, 15, 5, 64, 300, 128, 0, None), (2, 1, 8, 2, 128, 64, 40, 0, None),
+    # 6 rows x 5 query heads a KV head: head groups of 2, 2 and 1
+    (2, 6, 10, 2, 64, None, 9, 0, None)])
 def test_attn_paged_kernel_matches_plain(cuda_device, dtype, b, s, hp, hkv,
-                                         hd, window):
+                                         hd, window, p, idle, pad_slot):
     gen = torch.Generator(device=cuda_device).manual_seed(b * 100 + s)
     q, pk, pv, ppos, table, q_pos = _paged_case(
         cuda_device, gen, b=b, s=s, hp=hp, hkv=hkv, hd=hd, ps=16,
-        np_=8 * b + 4, p=6, dtype=dtype)
+        np_=b * max(p, 8) + 4, p=p, dtype=dtype, idle=idle, pad_slot=pad_slot)
     kw = dict(causal=True, window=window, quantized=True, n_q_heads=hp)
     got = A.attn_paged(q, pk, pv, ppos, table, q_pos, **kw)
     ref = A.attn_paged(q, pk, pv, ppos, table, q_pos, reference=True, **kw)
@@ -316,6 +350,83 @@ def test_attn_paged_kernel_matches_plain(cuda_device, dtype, b, s, hp, hkv,
     assert float((got[valid].float() - ref[valid].float()).abs().max()) <= tol
     # padding rows: both average V over the gathered slots
     assert float((got[~valid].float() - ref[~valid].float()).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        _assert_bf16_elementwise(got, A.attn_paged(
+            q.float(), pk.float(), pv.float(), ppos, table, q_pos,
+            reference=True, **kw), pv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hp,hkv,p,want", [
+    (8, 1, 15, 5, 18, (3, 1, 2, 9)),     # the main path's decode step
+    (1, 16, 15, 5, 18, (1, 3, 1, 18)),   # its prefill chunk: 3 head groups
+    (8, 1, 15, 5, 128, (3, 1, 10, 13)),  # 128-page tables: last split of 8
+    (2, 1, 4, 4, 201, (1, 1, 4, 51)),    # the last split has 1 page
+    (1, 1, 1, 1, 1, (1, 1, 1, 1))])
+def test_attn_paged_plan(cuda_device, b, s, hp, hkv, p, want):
+    """The kernel's launch plan: splits that cover the table with none
+    empty, enough blocks to fill the card where the table allows it, the
+    shared memory the CPU-side bound computes, and the scratch layout."""
+    for dtype, hd in ((torch.bfloat16, 64), (torch.float32, 128)):
+        nbytes, (hpb, ngroups, pps, nsplit, smem) = A.paged_plan(
+            b, s, hp, hkv, hd, p, hp, dtype)
+        assert (hpb, ngroups, pps, nsplit) == want
+        assert (nsplit - 1) * pps < p <= nsplit * pps
+        assert nsplit * hkv * ngroups * b >= min(p * hkv * ngroups * b, 264)
+        assert hpb == A.paged_heads_per_block(
+            A.paged_group_heads(hp, hkv, hp), s)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        assert smem == A.paged_smem_bytes(hpb * s, hd, itemsize)
+        # kmax (b, p), qmax (b,), row counters (b, s, hp), and with splits
+        # the partials (m, l) and acc of every row
+        rows = b * s * hp
+        assert nbytes == 4 * (b * p + b + rows + (
+            rows * nsplit * (2 + hd) if nsplit > 1 else 0))
+
+
+@pytest.mark.gpu
+def test_attn_flash_scratch_bytes(cuda_device):
+    # 2 x 264 float32 partial maxima (16-byte multiple), then K's levels
+    fn = _lib.launcher("attn_flash", [ctypes.c_longlong], "scratch_bytes",
+                       ctypes.c_longlong)
+    for n in (0, 100, 2 * 2048 * 15 * 64):
+        assert fn(n) == 4 * 2 * 264 + n
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_inputs_they_would_copy(cuda_device):
+    """On the card a wrapper launches on its inputs as they are: a
+    transposed q, an int64 table or a misaligned pool raises."""
+    q = torch.randn((1, 64, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.attn_flash(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pq, pk, pv, ppos, table, q_pos = _paged_case(
+        cuda_device, gen, b=2, s=1, hp=2, hkv=1, hd=32, ps=16, np_=8, p=2,
+        dtype=torch.float32)
+    kw = dict(quantized=True)
+    with pytest.raises(TypeError, match="int32"):
+        A.attn_paged(pq, pk, pv, ppos, table.long(), q_pos, **kw)
+    skew = torch.empty(pk.numel() + 1, device=cuda_device)[1:].view(pk.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        A.attn_paged(pq, skew, pv, ppos, table, q_pos, **kw)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_device_ops_per_call(cuda_device):
+    """A call is its kernels and nothing else on the device: at most three
+    operations for attn_flash, two for attn_paged (torch.profiler)."""
+    q = torch.randn((1, 256, 2, 64), device=cuda_device).bfloat16()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    pq, pk, pv, ppos, table, q_pos = _paged_case(
+        cuda_device, gen, b=8, s=1, hp=15, hkv=5, hd=64, ps=16, np_=160,
+        p=18, dtype=torch.bfloat16, idle=1)
+    flash = lambda: A.attn_flash(q, q, q)  # noqa: E731
+    paged = lambda: A.attn_paged(pq, pk, pv, ppos, table, q_pos,  # noqa: E731
+                                 quantized=True)
+    for fn, most in ((flash, 3), (paged, 2)):
+        fn()
+        assert 1 <= _lib.count_device_ops(fn) <= most
 
 
 @pytest.mark.gpu
