@@ -14,7 +14,11 @@ Phases, each of which makes the script exit nonzero when it fails:
    each kernel, hold the kernel against its plain PyTorch version on the
    card (pinned-scale accumulators and full-epilogue outputs exactly
    equal) and time kernel, plain version and a library yardstick beside
-   the card's bound;
+   the card's bound (``F.conv2d`` fp32 for ``conv_implicit``, with
+   ``torch._int_mm`` on the same GEMM view as ``int_mm_ms``), count each
+   call's device operations (``device_ops_per_call``: one for both) and
+   carry their time before the tensor-core redesign (``prev_ms``, a
+   constant, as for the attention rows below);
    the bit-plane kernels (``quantize_pack`` float-in and levels-in,
    ``bitgemm_packed`` at W1A1 and W1A4, ``int8_matmul`` on the W1A8
    nibble groups and on one signed case) at svhn's six quantized layers
@@ -146,6 +150,21 @@ ATTN_PREV_MS = {"bucket prefill": 1.039983993768692,
 
 PREV_MS_SOURCE = ("constant ATTN_PREV_MS: the kernels before their "
                   "redesign, not measured by this run")
+# device operations one call of each CNN kernel may make: one launch
+# (fused_qgemm's split-K combines inside it, through a cluster)
+CNN_MAX_DEVICE_OPS = {"fused_qgemm": 1, "conv_implicit": 1}
+# each CNN main-path shape's kernel ms at W1A8 before the redesign of
+# conv_implicit and fused_qgemm for the tensor cores: constants from a run
+# of this script on the __dp4a kernels (NVIDIA H100 80GB HBM3, 700.00 W),
+# printed as ``prev_ms`` on the KERNEL rows and never measured by this run
+CNN_PREV_MS = {"svhn conv1": 0.0315, "svhn conv2": 0.0562,
+               "svhn conv3": 0.0307, "svhn conv4": 0.0448,
+               "svhn conv5": 0.0525, "svhn conv6": 0.0119,
+               "alexnet conv1": 0.1684, "alexnet conv2": 0.0793,
+               "alexnet conv3": 0.1142, "alexnet conv4": 0.0727,
+               "alexnet fc5": 0.2560, "alexnet fc6": 0.1156}
+CNN_PREV_MS_SOURCE = ("constant CNN_PREV_MS: the __dp4a kernels before "
+                      "their tensor-core redesign, not measured by this run")
 
 
 class SmokeFailure(RuntimeError):
@@ -222,6 +241,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
 
     from repro_torch.core.and_accum import epilogue_scales, level_gemm_exact
     from repro_torch.core.conv_lowering import im2col_sliced, pad_split
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.conv_implicit import (conv_implicit,
                                                    conv_implicit_plain)
     from repro_torch.kernels.fused_qgemm import fused_qgemm, fused_qgemm_plain
@@ -229,6 +249,12 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {"fused_qgemm": [], "conv_implicit": []}
+    # what time_ms reads for a one-element kernel after the same L2 flush:
+    # the floor under every kernel time below
+    one = torch.zeros(1, device=dev)
+    print("TIMER_FLOOR", json.dumps(dict(
+        ms=time_ms(lambda: one.add_(1.0), 30, flush),
+        ms_no_flush=time_ms(lambda: one.add_(1.0), 30, None))), flush=True)
     for model, lp in kernel_shapes():
         b = 8
         w_lv = torch.randint(0, 2, (lp.k, lp.cout), generator=gen,
@@ -288,6 +314,13 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                 row["ms"] = time_ms(lambda: kern(full), 30, flush)
                 row["plain_ms"] = time_ms(lambda: plain(full), 5, flush)
                 row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
+                row["prev_ms"] = CNN_PREV_MS[f"{model} {lp.name}"]
+                row["prev_ms_source"] = CNN_PREV_MS_SOURCE
+                n_ops = _lib.count_device_ops(lambda: kern(full))
+                check(1 <= n_ops <= CNN_MAX_DEVICE_OPS[name],
+                      f"{name} {model} {lp.name}: {n_ops} device operations "
+                      f"per call (at most {CNN_MAX_DEVICE_OPS[name]})")
+                row["device_ops_per_call"] = n_ops
                 if name == "fused_qgemm":
                     # torch._int_mm: the int8 product alone (s8 operands,
                     # no rowsum or epilogue); it needs more than 16 rows
@@ -311,6 +344,14 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                     row["library_call"] = "F.conv2d fp32"
                     row["library_ms"] = time_ms(
                         lambda: F.conv2d(xf, wf, stride=lp.stride), 30, flush)
+                    # a second yardstick: torch._int_mm on the same
+                    # M x K x N GEMM view (s8 operands, no rowsum,
+                    # epilogue or im2col)
+                    a8 = torch.randint(0, 127, (m, lp.k), generator=gen,
+                                       dtype=torch.int8, device=dev)
+                    w8 = w_lv.to(torch.int8)
+                    row["int_mm_ms"] = time_ms(
+                        lambda: torch._int_mm(a8, w8), 30, flush)
             summary[name].append(row)
             print("KERNEL", json.dumps(row), flush=True)
     return summary
@@ -1326,7 +1367,7 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             entry["popc_floor_ms"] = sum(r["popc_floor_ms"] for r in timed)
         if name == "quantize_pack":
             entry["library_call"] = timed[0]["library_call"]
-        if name in ATTN_MAX_DEVICE_OPS:
+        if name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS:
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
                                                for r in timed)
         entry["shapes"] = [

@@ -85,19 +85,20 @@ class ComputeTarget:
     name: str = "cuda"
     kind: str = dataclasses.field(default="compute", init=False)
 
-    def implicit_smem(self, conv, k: int) -> tuple[int, int]:
+    def implicit_smem(self, conv, k: int, n: int) -> tuple[int, int]:
         """(bytes one implicit-kernel block needs, the budget): the kernel
-        wrapper's own layout and limit."""
+        wrapper's own layout and limit for ``n`` output channels."""
         from repro_torch.kernels.conv_implicit import SMEM_LIMIT, smem_layout
 
         cin = k // max(conv.kh * conv.kw, 1)
         need = smem_layout(conv.h, conv.w, cin, conv.kh, conv.kw,
-                           conv.stride, conv.padding)[2]
+                           conv.stride, conv.padding, conv.batch,
+                           n).smem_bytes
         return need, SMEM_LIMIT
 
     def select_engine(self, m, k, n, a_bits, w_bits, conv=None) -> str:
         if _implicit_eligible(conv) and k >= IMPLICIT_KDIM_MIN:
-            need, budget = self.implicit_smem(conv, k)
+            need, budget = self.implicit_smem(conv, k, n)
             if need <= budget:
                 return "implicit"
         return "fused"

@@ -2,13 +2,16 @@
 
 Port of ``repro/kernels/conv_implicit.py`` (``conv_implicit_pallas``).  The
 CUDA kernel is ``csrc/conv_implicit.cu``; its source note says what bounds
-it on an H100 and how it stages the halo'd row span of each block in
-shared memory.  :func:`conv_implicit` is the wrapper: a CPU tensor takes
-:func:`conv_implicit_plain`, a CUDA tensor launches the kernel or raises.
+it on an H100 and how it works: u8 tensor-core ``mma`` fed by
+``ldmatrix`` straight from each block's staged halo'd row span, the
+weights streamed through a ``cp.async`` ring.  :func:`conv_implicit` is
+the wrapper: a CPU tensor takes :func:`conv_implicit_plain`, a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,29 +22,49 @@ from . import _lib
 
 NAME = "conv_implicit"
 
-# block tile of csrc/conv_implicit.cu: TM output pixels x TN channels, the
-# weight slab streamed in KC-channel chunks with a KC + 4 byte pitch
-TM, TN, KC = 64, 64, 128
-# shared memory one block may use on an H100 (227 KB)
+# block tile of csrc/conv_implicit.cu: TM output pixels (the largest of
+# TMS that gives the grid a block a SM) x TN channels; the weights stream
+# through NST stages of CH 16-channel chunks (CH * 16 K rows x TN bytes)
+TMS, TN, CH, NST = (128, 64, 32, 16), 64, 8, 4
+# shared memory one block may use on an H100 (227 KB), and its SM count
 SMEM_LIMIT = 232448
+SMS = 132
+
+
+class ConvLayout(NamedTuple):
+    """One launch's tile and shared memory (``csrc/conv_implicit.cu``)."""
+    tm: int           # output pixels a block
+    cpitch: int       # bytes a staged pixel: Cin in 16-byte chunks, odd
+    xs_bytes: int     # the staged row span
+    smem_bytes: int   # span, weight ring, chunk tables, zero chunk, rowsums
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def smem_layout(h: int, w: int, cin: int, kh: int, kw: int, stride: int,
-                padding: str) -> tuple[int, int, int]:
-    """``(cpitch, xs_bytes, smem_bytes)`` of one block: the channel pitch
-    of a staged pixel (Cin rounded up to a word, then to an odd number of
-    words), the staged row span in bytes, and the block's whole dynamic
-    shared memory.  The plan's feasibility bound (``api/targets.py``)
-    calls this same function."""
+                padding: str, batch: int, cout: int) -> ConvLayout:
+    """The launch layout of one call: the largest pixel tile of TMS whose
+    grid has at least SMS blocks and whose block fits SMEM_LIMIT (else the
+    smallest tile).  A call is feasible iff the 16-pixel tile fits, at any
+    batch and Cout.  The plan's feasibility bound (``api/targets.py``) and
+    the wrapper both call this function; the kernel refuses a shared
+    memory size other than its own sum for the layout."""
     oh, ow = _out_hw(h, w, kh, kw, stride, padding)
-    rows_out = min(oh, 1 + (ow - 1 + TM - 1) // ow)
-    span_rows = (rows_out - 1) * stride + kh
-    span_cols = (ow - 1) * stride + kw
-    cpitch = -(-cin // 4) * 4
-    if (cpitch // 4) % 2 == 0:
-        cpitch += 4
-    xs_bytes = -(-(span_rows * span_cols * cpitch) // 16) * 16
-    return cpitch, xs_bytes, xs_bytes + TN * (KC + 4) + TM * 4
+    cpt = -(-cin // 16)
+    cpitch = 16 * (cpt if cpt % 2 else cpt + 1)
+    nqp = -(-kh * kw * cpt // CH) * CH     # K chunks, whole stages
+    fixed = NST * CH * 16 * TN + 12 * nqp + 16
+    for tm in TMS:
+        rows_out = min(oh, 1 + (ow - 1 + tm - 1) // ow)
+        span = ((rows_out - 1) * stride + kh) * ((ow - 1) * stride + kw)
+        xs = _r16(span * cpitch)
+        layout = ConvLayout(tm, cpitch, xs, xs + fixed + 4 * tm)
+        blocks = batch * -(-oh * ow // tm) * -(-cout // TN)
+        if layout.smem_bytes <= SMEM_LIMIT and blocks >= SMS:
+            return layout
+    return layout
 
 
 def conv_implicit_plain(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
@@ -90,7 +113,7 @@ def _check(x_lv, w_lv, kh, kw, stride, padding, a_bits, w_bits) -> None:
 
 def _launcher():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return _lib.launcher(NAME, [p, p, p] + [i] * 15 + [f, f, p])
+    return _lib.launcher(NAME, [p, p, p] + [i] * 16 + [f, f, p])
 
 
 def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
@@ -109,10 +132,10 @@ def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     cout = w_lv.shape[1]
     oh, ow = _out_hw(h, w, kh, kw, stride, padding)
     (pt, _), (pl, _) = pad_split(h, w, kh, kw, stride, padding)
-    cpitch, xs_bytes, smem = smem_layout(h, w, cin, kh, kw, stride, padding)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"conv_implicit: a block needs {smem} B of shared "
-                         f"memory (> {SMEM_LIMIT})")
+    lay = smem_layout(h, w, cin, kh, kw, stride, padding, b, cout)
+    if lay.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"conv_implicit: a block needs {lay.smem_bytes} B "
+                         f"of shared memory (> {SMEM_LIMIT})")
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32,
                       device=x_lv.device)
     if out.numel() == 0:
@@ -122,7 +145,7 @@ def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
         stream = torch.cuda.current_stream(x_lv.device).cuda_stream
         err = _launcher()(x_lv.data_ptr(), w_lv.data_ptr(), out.data_ptr(),
                           b, h, w, cin, cout, kh, kw, stride, oh, ow, pt, pl,
-                          cpitch, xs_bytes, smem, float(s), float(t), stream)
+                          *lay, float(s), float(t), stream)
     _lib.check_launch(NAME, err)
     _lib.LAUNCHES[NAME] += 1
     return out

@@ -2,13 +2,17 @@
 
 Port of ``repro/kernels/fused_qgemm.py`` (``fused_qgemm_pallas``).  The
 CUDA kernel is ``csrc/fused_qgemm.cu``; its source note says what bounds it
-on an H100 and how it is laid out.  :func:`fused_qgemm` is the wrapper: a
+on an H100 and how it is laid out: u8 tensor-core ``mma`` on a ``cp.async``
+ring, and split-K over a thread-block cluster for skinny M (the plan is
+the ``.cu`` file's ``plan_for``, exported as ``fused_qgemm_plan``;
+:func:`gemm_plan` is its CPU-side copy).  :func:`fused_qgemm` is the wrapper: a
 CPU tensor takes :func:`fused_qgemm_plain`, a CUDA tensor launches the
 kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +22,46 @@ from repro_torch.core.quant import activation_levels
 from . import _lib
 
 NAME = "fused_qgemm"
+
+# csrc/fused_qgemm.cu's plan constants: BN output columns a block, NST
+# stages of the cp.async ring; at M <= 32 (16-row tiles) K is split until
+# the grid holds about BLOCKS_PER_SM blocks on each of SMS SMs, at most
+# MAX_SPLIT ways (the portable cluster size) and at least two K steps a
+# split
+BN, NST, SMS, BLOCKS_PER_SM, MAX_SPLIT = 64, 4, 132, 4, 8
+
+
+class GemmPlan(NamedTuple):
+    bm: int       # rows a block
+    bk: int       # K bytes a pipeline stage
+    nsplit: int   # K splits: one thread-block cluster a tile
+    steps: int    # K steps a split
+    smem: int     # dynamic shared memory a block
+
+
+def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
+    """The launch plan ``csrc/fused_qgemm.cu`` makes for (M, N, K): its
+    ``plan_for``, copied here so the CPU can read it (the card's tests
+    hold the two equal through :func:`kernel_plan`)."""
+    bm = 16 if m <= 32 else 64
+    bk = 128 if bm == 16 else 64
+    tiles = max(1, -(-m // bm) * -(-n // BN))
+    nsteps = max(1, -(-k // bk))
+    split = -(-SMS * BLOCKS_PER_SM // tiles) if bm == 16 else 1
+    split = max(1, min(split, MAX_SPLIT, nsteps // 2))
+    steps = -(-nsteps // split)
+    return GemmPlan(bm, bk, -(-nsteps // steps), steps,
+                    NST * (bm * bk + bk * BN))
+
+
+def kernel_plan(m: int, n: int, k: int) -> GemmPlan:
+    """The plan the built kernel's ``fused_qgemm_plan`` returns (needs
+    ``nvcc``: the card's tests)."""
+    plan = (ctypes.c_int * 5)()
+    i = ctypes.c_int
+    fn = _lib.launcher(NAME, [i, i, i, ctypes.POINTER(ctypes.c_int)], "plan")
+    _lib.check_launch(NAME, fn(m, n, k, plan))
+    return GemmPlan(*plan)
 
 
 def fused_qgemm_plain(a: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,

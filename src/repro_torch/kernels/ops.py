@@ -119,7 +119,7 @@ def engine_feasible(engine: str, m: int, k: int, n: int, a_bits: int,
         return False, f"stride {conv.stride} unsupported (routing covers {IMPLICIT_STRIDES})"
     if conv.padding not in IMPLICIT_PADDINGS:
         return False, f"padding {conv.padding!r} unsupported"
-    need, budget = get_target(target).implicit_smem(conv, k)
+    need, budget = get_target(target).implicit_smem(conv, k, n)
     if need > budget:
         return False, (f"one block needs {need} B of shared memory "
                        f"(> {budget} B)")

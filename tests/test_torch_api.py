@@ -73,14 +73,16 @@ def test_cuda_implicit_bound_is_the_kernels_shared_memory():
 
     t = get_target("cuda")
     conv = ops.ConvShape(14, 14, 3, 3, 1, "SAME", batch=8)
-    need, budget = t.implicit_smem(conv, 3 * 3 * 384)
-    assert need == smem_layout(14, 14, 384, 3, 3, 1, "SAME")[2]
+    need, budget = t.implicit_smem(conv, 3 * 3 * 384, 384)
+    assert need == smem_layout(14, 14, 384, 3, 3, 1, "SAME", 8,
+                               384).smem_bytes
     assert budget == SMEM_LIMIT
     # a deep-K conv on a wide map whose staged rows overflow shared memory
-    # routes to the fused GEMM instead (and forcing implicit is refused)
+    # even at the smallest pixel tile routes to the fused GEMM instead (and
+    # forcing implicit is refused)
     wide = ops.ConvShape(16, 600, 3, 3, 1, "SAME", batch=1)
     k = 3 * 3 * 512
-    assert t.implicit_smem(wide, k)[0] > budget
+    assert t.implicit_smem(wide, k, 64)[0] > budget
     assert t.select_engine(wide.m, k, 64, 4, 1, wide) == "fused"
     ok, why = ops.engine_feasible("implicit", wide.m, k, 64, 4, 1, "cuda",
                                   wide)

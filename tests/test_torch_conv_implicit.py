@@ -123,13 +123,42 @@ def test_conv_wrapper_on_cpu_is_the_plain_version_and_validates():
 
 
 def test_smem_layout_of_main_path_layers():
-    # svhn conv5: 10x10x256 -> 8 output rows staged as 10 x 12 pixels with
-    # a 260-byte (65-word) channel pitch; AlexNet conv3: 14x14x384 -> 8 x 16
-    # pixels at 388 bytes, over 48 KB so it needs the opt-in attribute
-    cp, xs, smem = smem_layout(10, 10, 256, 3, 3, 1, "SAME")
-    assert (cp, xs) == (260, 10 * 12 * 260)
-    cp, xs, smem = smem_layout(14, 14, 384, 3, 3, 1, "SAME")
-    assert (cp, xs) == (388, 8 * 16 * 388)
-    assert 48 * 1024 < smem <= SMEM_LIMIT
-    cp, _, _ = smem_layout(9, 7, 5, 3, 3, 2, "VALID")
-    assert cp == 12 and (cp // 4) % 2 == 1
+    # svhn conv5 at batch 8: a 10x10x256 map, 16-pixel tiles (224 blocks)
+    # staging 5 x 12 pixels at a 272-byte (17-chunk) pitch; AlexNet conv3:
+    # 14x14x384, 64-pixel tiles staging 8 x 16 pixels at 400 bytes (25
+    # chunks), over 48 KB; Cin = 5 is zero-padded to one 16-byte chunk.
+    # Each block adds the 4-stage weight ring (4 x 128 K rows x 64
+    # channels), 12 bytes of tables per 16-channel chunk of K (144 chunks,
+    # whole stages of 8), a zero chunk and one int32 rowsum per pixel.
+    lay = smem_layout(10, 10, 256, 3, 3, 1, "SAME", 8, 256)
+    assert lay == (16, 272, 5 * 12 * 272, 5 * 12 * 272 + 32768 + 144 * 12
+                   + 16 + 16 * 4)
+    lay = smem_layout(14, 14, 384, 3, 3, 1, "SAME", 8, 384)
+    assert lay[:3] == (64, 400, 8 * 16 * 400)
+    assert 48 * 1024 < lay.smem_bytes <= SMEM_LIMIT
+    lay = smem_layout(9, 7, 5, 3, 3, 2, "VALID", 2, 7)
+    assert lay.tm == 16 and lay.cpitch == 16
+
+
+# batch-8 main-path convs (svhn conv1-5, AlexNet conv1-4): (h, w, cin,
+# cout, k) -> the pixel tile the kernel runs
+MAIN_CONVS = [((40, 40, 64, 64, 3), 64), ((40, 40, 64, 128, 3), 128),
+              ((20, 20, 128, 128, 3), 32), ((20, 20, 128, 256, 3), 64),
+              ((10, 10, 256, 256, 3), 16), ((28, 28, 96, 256, 5), 128),
+              ((14, 14, 256, 384, 3), 64), ((14, 14, 384, 384, 3), 64),
+              ((14, 14, 384, 256, 3), 32)]
+
+
+@pytest.mark.parametrize("geom,tm", MAIN_CONVS, ids=lambda v: str(v))
+def test_conv_tile_plan_fills_the_card_at_main_path_shapes(geom, tm):
+    """The largest pixel tile whose grid has a block on every SM, inside
+    shared memory; smaller tiles only where the grid would not fill."""
+    from repro_torch.kernels.conv_implicit import SMS, TMS, TN
+
+    h, w, cin, cout, k = geom
+    lay = smem_layout(h, w, cin, k, k, 1, "SAME", 8, cout)
+    assert lay.tm == tm and lay.smem_bytes <= SMEM_LIMIT
+    blocks = lambda t: 8 * -(-h * w // t) * -(-cout // TN)  # noqa: E731
+    assert blocks(tm) >= SMS
+    assert all(blocks(t) < SMS for t in TMS if t > tm)
+    assert lay.cpitch % 32 == 16 and lay.cpitch >= cin

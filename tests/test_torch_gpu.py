@@ -60,8 +60,14 @@ def _scales(wb, ab, rs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("wb,ab", BITS)
 @pytest.mark.parametrize("m,k,n", [(5, 70, 9), (130, 600, 140),
-                                   (8, 9216, 96), (800, 256, 512)])
+                                   (8, 9216, 96), (800, 256, 512),
+                                   (1, 48, 200), (17, 1000, 76),
+                                   (8, 9216, 4096)])
 def test_fused_kernel_matches_plain(cuda_device, m, k, n, wb, ab):
+    """Odd shapes stage through registers (K or N not a multiple of 16),
+    M = 1, 8, 17 take the 16-row tile, and (17, 1000, 76), (8, 9216, 96)
+    and AlexNet fc5 (8, 9216, 4096) split K over a cluster (4, 8 and 8
+    ways)."""
     rs = np.random.RandomState(m + ab)
     a = torch.from_numpy(rs.uniform(-0.2, 1.2, (m, k)).astype(np.float32))
     a_lv = torch.clamp(torch.round(torch.clamp(a, 0, 1) * ((1 << ab) - 1)),
@@ -84,10 +90,15 @@ def test_fused_kernel_matches_plain(cuda_device, m, k, n, wb, ab):
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])
 def test_conv_kernel_matches_plain(cuda_device, wb, ab, stride, padding):
     rs = np.random.RandomState(ab * 7 + stride)
-    # odd dims and Cin (byte staging path), Cout past one 64-channel tile
-    # and a word-aligned Cin (word staging path), a 5x5 window
+    # odd dims and Cin (register staging, one zero-padded 16-byte chunk),
+    # Cout past one 64-channel tile, Cin = 24 (two chunks, the second half
+    # padding) with Cout = 40, a 5x5 window on Cin = 96, and the 16- and
+    # 128-pixel tiles of svhn conv5 and AlexNet conv1 at batch 8
     for b, h, w, cin, cout, k in ((2, 9, 7, 5, 7, 3), (3, 14, 14, 64, 130, 3),
-                                  (2, 12, 11, 96, 64, 5)):
+                                  (2, 12, 11, 96, 64, 5),
+                                  (2, 11, 13, 24, 40, 3),
+                                  (8, 10, 10, 256, 256, 3),
+                                  (8, 28, 28, 96, 256, 5)):
         x = torch.from_numpy(rs.randint(0, 1 << ab, (b, h, w, cin)).astype(
             np.uint8)).to(cuda_device)
         wl = torch.from_numpy(rs.randint(0, 1 << wb, (k * k * cin, cout))
@@ -115,6 +126,58 @@ def test_wrappers_count_launches_only_for_the_kernel(cuda_device):
                              "attn_flash": 0, "attn_paged": 0,
                              "quantize_pack": 0, "bitgemm_packed": 0,
                              "int8_matmul": 0}
+
+
+@pytest.mark.gpu
+def test_cnn_kernels_one_device_op_per_call(cuda_device):
+    """Each call of the two CNN kernels is one launch and nothing beside
+    it: fused_qgemm's split-K combines in the same launch (a cluster)."""
+    x = torch.randint(0, 256, (8, 10, 10, 256), dtype=torch.uint8,
+                      device=cuda_device)
+    wc = torch.randint(0, 2, (9 * 256, 256), dtype=torch.uint8,
+                       device=cuda_device)
+    a = torch.randint(0, 256, (8, 9216), dtype=torch.uint8,
+                      device=cuda_device)
+    wf = torch.randint(0, 2, (9216, 4096), dtype=torch.uint8,
+                       device=cuda_device)
+    assert _lib.count_device_ops(lambda: conv_implicit(
+        x, wc, 0.04, 0.5, kh=3, kw=3, a_bits=8, w_bits=1)) == 1
+    assert _lib.count_device_ops(lambda: fused_qgemm(
+        a, wf, 0.04, 0.5, a_bits=8, w_bits=1, a_is_levels=True)) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(800, 256, 512), (100, 256, 512),
+                                   (8, 9216, 4096), (1, 9216, 4096),
+                                   (8, 4096, 4096), (1, 4096, 4096),
+                                   (5, 70, 9), (130, 600, 140),
+                                   (17, 1000, 76), (0, 0, 0)])
+def test_fused_plan_export_equals_its_cpu_copy(cuda_device, m, k, n):
+    from repro_torch.kernels.fused_qgemm import gemm_plan, kernel_plan
+
+    assert kernel_plan(m, n, k) == gemm_plan(m, n, k)
+
+
+@pytest.mark.gpu
+def test_conv_launcher_refuses_a_foreign_layout(cuda_device):
+    """The kernel sums its own shared memory for the layout it is given
+    and refuses any other size, so the host's smem_layout (the plan's
+    feasibility bound) cannot drift from the kernel unseen."""
+    from repro_torch.kernels import conv_implicit as C
+
+    x = torch.zeros((2, 10, 10, 32), dtype=torch.uint8, device=cuda_device)
+    w = torch.zeros((9 * 32, 64), dtype=torch.uint8, device=cuda_device)
+    out = torch.empty((2, 10, 10, 64), device=cuda_device)
+    lay = C.smem_layout(10, 10, 32, 3, 3, 1, "SAME", 2, 64)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (2, 10, 10, 32, 64, 3, 3, 1, 10, 10, 1, 1)
+    for bad in (lay._replace(smem_bytes=lay.smem_bytes + 16),
+                lay._replace(cpitch=32), lay._replace(tm=48)):
+        assert C._launcher()(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             *args, *bad, 1.0, 0.0, stream) != 0
+    assert C._launcher()(x.data_ptr(), w.data_ptr(), out.data_ptr(), *args,
+                         *lay, 1.0, 0.0, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

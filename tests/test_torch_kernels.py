@@ -26,7 +26,7 @@ from repro.kernels.fused_qgemm import fused_qgemm_pallas  # noqa: E402
 from repro_torch.core.and_accum import epilogue_scales  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.fused_qgemm import (fused_qgemm,  # noqa: E402
-                                             fused_qgemm_plain)
+                                             fused_qgemm_plain, gemm_plan)
 
 # (w_bits, a_bits): the paper's W1A1, W1A4, W1A8 and W2A2
 BITS = [(1, 1), (1, 4), (1, 8), (2, 2)]
@@ -149,3 +149,35 @@ def test_fused_wrapper_validates_operands():
         fused_qgemm(torch.zeros((1, 40000), dtype=torch.uint8),
                     torch.zeros((40000, 1), dtype=torch.uint8), 1.0, 0.0,
                     a_bits=8, w_bits=8, a_is_levels=True)
+
+
+# batch-8 and batch-1 main-path GEMMs of the fused kernel (svhn conv6,
+# AlexNet fc5 and fc6): (M, K, N) -> (row tile, K step, K splits, K steps
+# a split)
+MAIN_GEMMS = [((800, 256, 512), (64, 64, 1, 4)),
+              ((100, 256, 512), (64, 64, 1, 4)),
+              ((8, 9216, 4096), (16, 128, 8, 9)),
+              ((1, 9216, 4096), (16, 128, 8, 9)),
+              ((8, 4096, 4096), (16, 128, 8, 4)),
+              ((1, 4096, 4096), (16, 128, 8, 4))]
+
+
+@pytest.mark.parametrize("mkn,want", MAIN_GEMMS, ids=lambda v: str(v))
+def test_fused_split_plan_at_main_path_shapes(mkn, want):
+    """The split-K plan of ``csrc/fused_qgemm.cu`` (its CPU-side copy;
+    ``test_torch_gpu.py`` holds the kernel's export equal to it): splits
+    cover K with none empty, stay within the portable cluster size and
+    two K steps a split, only the 16-row tile splits, and the skinny FC
+    layers get at least three blocks a SM (the 8-way cap keeps fc5/fc6
+    at 512 blocks)."""
+    m, k, n = mkn
+    p = gemm_plan(m, n, k)
+    assert (p.bm, p.bk, p.nsplit, p.steps) == want
+    nsteps = -(-k // p.bk)
+    assert (p.nsplit - 1) * p.steps < nsteps <= p.nsplit * p.steps
+    assert p.nsplit <= 8 and (p.nsplit == 1 or p.steps >= 2)
+    assert p.nsplit == 1 or p.bm == 16
+    blocks = -(-m // p.bm) * -(-n // 64) * p.nsplit
+    if m <= 16:
+        assert blocks >= 3 * 132
+    assert p.smem == 4 * (p.bm * p.bk + p.bk * 64) <= 48 * 1024
