@@ -24,7 +24,12 @@ Phases, each of which makes the script exit nonzero when it fails:
    nibble groups and on one signed case) at svhn's six quantized layers
    and AlexNet's (fc5/fc6 for ``int8_matmul``) at batch 8, held to their
    plain versions with ``torch.equal`` and timed beside their bound,
-   their plain version and ``torch._int_mm`` on the levels;
+   their plain version and ``torch._int_mm`` on the levels; the two
+   GEMM kernels' rows count each call's device operations (one for both)
+   and carry their time before the tensor-core redesign (``prev_ms``, a
+   constant); ``int8_matmul`` is also held and timed at SmolLM-360M's
+   four decode GEMMs (8 rows) beside ``torch._int_mm`` at the LM's 24
+   padded rows, outside the main path and the ``kernels`` line's sums;
    the LM kernels (``attn_flash`` at the bucket prefill's shape and one
    window shape, ``attn_paged`` at a decode step and a prefill chunk) are
    held against their plain versions within 1e-5 x max|v| on float32
@@ -92,6 +97,10 @@ PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12    # non-tensor-core float32
 PEAK_BF16_FLOPS = 989e12   # bf16 dense tensor cores (attention's P @ V)
+# b1 AND + popcount (bitgemm_packed's mma .b1 .and.popc): not in the data
+# sheet; mma.sync issues it at the u8 instruction rate with 8x the K, so
+# 8x the int8 peak, counted as 2 operations (AND, add) a bit product
+PEAK_B1_OPS = 8 * PEAK_INT8_OPS
 # alone vs batched only: a request's logits may move by level flips at
 # exact .5 boundaries when the library reductions and convolutions around
 # the kernels change summation order with the batch size; the JAX
@@ -136,7 +145,8 @@ LM_MARGIN_TOL = 0.05
 # differs; bfloat16 outputs add one rounding of the output
 ATTN_TOL_F32, ATTN_TOL_BF16 = 1e-5, 2.0 ** -7   # x max|v|
 # device operations one call of each attention wrapper may make (its
-# kernels; no PyTorch op beside them), counted with torch.profiler
+# kernels; no PyTorch op beside them), counted as the nodes of a CUDA graph
+# captured from one call (_lib.count_device_ops)
 ATTN_MAX_DEVICE_OPS = {"attn_flash": 3, "attn_paged": 2}
 # each attention case's kernel ms before the kernels' redesign: constants
 # from this script at the parent commit of the redesign (NVIDIA H100 80GB
@@ -165,6 +175,39 @@ CNN_PREV_MS = {"svhn conv1": 0.0315, "svhn conv2": 0.0562,
                "alexnet fc5": 0.2560, "alexnet fc6": 0.1156}
 CNN_PREV_MS_SOURCE = ("constant CNN_PREV_MS: the __dp4a kernels before "
                       "their tensor-core redesign, not measured by this run")
+# device operations one call of each bit-plane GEMM kernel may make: one
+# launch (split-K combines inside it, through a cluster)
+BIT_MAX_DEVICE_OPS = {"bitgemm_packed": 1, "int8_matmul": 1}
+# each bit-plane GEMM row's kernel ms before the tensor-core redesign of
+# bitgemm_packed (__popc on the CUDA cores) and int8_matmul (__dp4a):
+# constants from a run of this script on those kernels (NVIDIA H100 80GB
+# HBM3, 700.00 W, batch 8), printed as ``prev_ms`` on the KERNEL rows and
+# never measured by this run
+BIT_PREV_MS = {
+    "bitgemm_packed svhn conv1 a1": 0.0148, "bitgemm_packed svhn conv2 a1": 0.0238,
+    "bitgemm_packed svhn conv3 a1": 0.0179, "bitgemm_packed svhn conv4 a1": 0.0206,
+    "bitgemm_packed svhn conv5 a1": 0.0294, "bitgemm_packed svhn conv6 a1": 0.0082,
+    "bitgemm_packed svhn conv1 a4": 0.0382, "bitgemm_packed svhn conv2 a4": 0.0656,
+    "bitgemm_packed svhn conv3 a4": 0.0372, "bitgemm_packed svhn conv4 a4": 0.0577,
+    "bitgemm_packed svhn conv5 a4": 0.0649, "bitgemm_packed svhn conv6 a4": 0.0122,
+    "bitgemm_packed alexnet conv1 a1": 0.0601,
+    "bitgemm_packed alexnet conv2 a1": 0.0318,
+    "bitgemm_packed alexnet conv3 a1": 0.0458,
+    "bitgemm_packed alexnet conv4 a1": 0.0424,
+    "bitgemm_packed alexnet fc5 a1": 0.0939,
+    "bitgemm_packed alexnet fc6 a1": 0.0430,
+    "int8_matmul svhn conv1": 0.0232, "int8_matmul svhn conv2": 0.0364,
+    "int8_matmul svhn conv3": 0.0365, "int8_matmul svhn conv4": 0.0394,
+    "int8_matmul svhn conv5": 0.0642, "int8_matmul svhn conv6": 0.0120,
+    "int8_matmul alexnet fc5": 0.2469, "int8_matmul alexnet fc6": 0.1127}
+BIT_PREV_MS_SOURCE = ("constant BIT_PREV_MS: the CUDA-core kernels before "
+                      "their tensor-core redesign, not measured by this run")
+# SmolLM-360M's decode GEMMs (K, N) at 8 rows: q/o (960, 960), k/v (960,
+# 320), gate/up (960, 2560), down (2560, 960).  The LM runs them on
+# torch._int_mm (rows padded to 24, core/and_accum.centred_gemm_int);
+# int8_matmul is held and timed there beside it, outside the main path
+LM_INT8_GEMMS = ((960, 960), (960, 320), (960, 2560), (2560, 960))
+LM_INT8_ROWS, LM_INT_MM_ROWS = 8, 24
 
 
 class SmokeFailure(RuntimeError):
@@ -209,13 +252,14 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None) -> float:
 
 
 def bound_ms(ops: float, nbytes: float, fp32_flops: float = 0.0,
-             bf16_flops: float = 0.0) -> tuple[float, str]:
+             bf16_flops: float = 0.0, b1_ops: float = 0.0
+             ) -> tuple[float, str]:
     """Larger of bytes over the memory rate and the arithmetic: int8
     operations at the int8 tensor-core rate, plus float32 operations at the
     non-tensor float32 rate, plus bf16 operations at the bf16 tensor-core
-    rate."""
+    rate, plus b1 AND + popcount operations at the b1 rate."""
     t_ops = (ops / PEAK_INT8_OPS + fp32_flops / PEAK_FP32_FLOPS
-             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+             + bf16_flops / PEAK_BF16_FLOPS + b1_ops / PEAK_B1_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -385,7 +429,7 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
     version with ``torch.equal`` and timed beside its bound, its plain
     version and ``torch._int_mm`` on the levels."""
     from repro_torch.core.and_accum import _nibble_split, level_gemm_exact
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _lib, ops
     from repro_torch.kernels.bitgemm import (bitgemm_packed,
                                              bitgemm_packed_plain)
     from repro_torch.kernels.bitgemm_mxu import int8_matmul, int8_matmul_plain
@@ -429,9 +473,13 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
                        popc_floor_ms=1e3 * m * n * kwords * a_bits / popc_rate,
                        **_int_mm_yardstick(a_lv.view(torch.int8),
                                            w_lv.view(torch.int8), flush))
+            # Eq. 1's bit products: every plane pair over K
             row["bound_ms"], row["bound_by"] = bound_ms(
-                2.0 * m * n * k,
-                4 * (a_planes.numel() + w_planes.numel() + m * n))
+                0.0, 4 * (a_planes.numel() + w_planes.numel() + m * n),
+                b1_ops=2.0 * m * n * k * a_bits)
+            row.update(_bit_ops_and_prev(
+                f"bitgemm_packed {model} {lp.name} a{a_bits}",
+                lambda: bitgemm_packed(a_planes, w_planes, **kw)))
             summary["bitgemm_packed"].append(row)
             print("KERNEL", json.dumps(row), flush=True)
 
@@ -487,6 +535,8 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
                    **_int_mm_yardstick(g, w8, flush))
         row["bound_ms"], row["bound_by"] = bound_ms(2.0 * m * n * k,
                                                     m * k + k * n + 4 * m * n)
+        row.update(_bit_ops_and_prev(f"int8_matmul {model} {lp.name}",
+                                     lambda: int8_matmul(g, w8)))
         summary["int8_matmul"].append(row)
         print("KERNEL", json.dumps(row), flush=True)
 
@@ -503,7 +553,53 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
     summary["int8_matmul"].append(dict(
         case="signed s8 x s8, values -128..127", shape=[800, 256, 512],
         max_abs_err=err(got, ref)))
+
+    # SmolLM's decode GEMMs: held and timed beside torch._int_mm at the
+    # LM's padded rows, outside the main path (the LM keeps _int_mm)
+    for k, n in LM_INT8_GEMMS:
+        m = LM_INT8_ROWS
+        a8 = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8,
+                           device=dev)
+        b8 = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8,
+                           device=dev)
+        got, ref = int8_matmul(a8, b8), int8_matmul_plain(a8, b8)
+        torch.cuda.synchronize()
+        name = f"int8_matmul smollm decode {k}x{n}"
+        check(torch.equal(got, ref), f"{name}: differs from the plain "
+                                     f"version (max abs {err(got, ref)})")
+        pad = torch.cat([a8, a8.new_zeros((LM_INT_MM_ROWS - m, k))])
+        row = dict(model="smollm-360m", case=f"decode GEMM K={k} N={n}",
+                   main_path=False, shape=[m, k, n],
+                   max_abs_err=err(got, ref),
+                   ms=time_ms(lambda: int8_matmul(a8, b8), 30, flush),
+                   plain_ms=time_ms(lambda: int8_matmul_plain(a8, b8), 5,
+                                    flush),
+                   library_call=f"torch._int_mm ({LM_INT_MM_ROWS} rows, as "
+                                f"the LM pads them)",
+                   library_ms=time_ms(lambda: torch._int_mm(pad, b8), 30,
+                                      flush))
+        row["bound_ms"], row["bound_by"] = bound_ms(2.0 * m * n * k,
+                                                    m * k + k * n + 4 * m * n)
+        n_ops = _lib.count_device_ops(lambda: int8_matmul(a8, b8))
+        check(n_ops == 1, f"{name}: {n_ops} device operations per call")
+        row["device_ops_per_call"] = n_ops
+        summary["int8_matmul"].append(row)
+        print("KERNEL", json.dumps(row), flush=True)
     return summary
+
+
+def _bit_ops_and_prev(key: str, fn) -> dict:
+    """A bit-plane GEMM row's device operations per call (failing above
+    BIT_MAX_DEVICE_OPS) and its time before the redesign (a constant)."""
+    from repro_torch.kernels import _lib
+
+    name = key.split()[0]
+    n_ops = _lib.count_device_ops(fn)
+    check(1 <= n_ops <= BIT_MAX_DEVICE_OPS[name],
+          f"{key}: {n_ops} device operations per call (at most "
+          f"{BIT_MAX_DEVICE_OPS[name]})")
+    return dict(device_ops_per_call=n_ops, prev_ms=BIT_PREV_MS[key],
+                prev_ms_source=BIT_PREV_MS_SOURCE)
 
 
 def _kept_pairs(sq: int, causal: bool, window) -> int:
@@ -1008,7 +1104,7 @@ def bitplane_main_path(card: str) -> dict:
         card=card)
     report["profile"] = {
         tag: profile_forward(lambda c=deps[tag][1]: c.forward(batches[0]), 20)
-        for tag in BITPLANE_WINDOWS}
+        for tag in deps}
     report["profile"]["alexnet w1a1 faithful"] = profile_forward(
         lambda: alex.forward(x_alex), 5)
     report["profile"]["card"] = card
@@ -1367,7 +1463,8 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             entry["popc_floor_ms"] = sum(r["popc_floor_ms"] for r in timed)
         if name == "quantize_pack":
             entry["library_call"] = timed[0]["library_call"]
-        if name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS:
+        if (name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS
+                or name in BIT_MAX_DEVICE_OPS):
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
                                                for r in timed)
         entry["shapes"] = [

@@ -71,10 +71,6 @@ using namespace u8mma;
 constexpr int BN = W_ROW;          // output columns per block
 constexpr int THREADS = 128;       // four warps
 constexpr int NST = 4;             // stages of the cp.async ring
-constexpr int SMS = 132;           // H100 SXM
-constexpr int BLOCKS_PER_SM = 4;   // split-K fills the grid to this
-constexpr int MAX_SPLIT = 8;       // portable thread-block cluster size
-constexpr int RED_PITCH = BN + 4;  // int32 pitch of a split's partial tile
 
 // One call's launch plan: the row tile, the K step, the K splits (one
 // cluster), the K steps a split and the dynamic shared memory.
@@ -91,9 +87,7 @@ Plan plan_for(int M, int N, int K) {
   const int nsteps = std::max(1, (K + p.bk - 1) / p.bk);
   // only the skinny 16-row tile splits: at M = 800 (svhn conv6) the
   // cluster combine costs more than the extra blocks gain
-  int split = p.bm == 16 ? (SMS * BLOCKS_PER_SM + tiles - 1) / tiles : 1;
-  split = std::max(1, std::min(split, std::min(MAX_SPLIT, nsteps / 2)));
-  p.steps = (nsteps + split - 1) / split;
+  p.steps = split_steps(tiles, nsteps, p.bm == 16, /*split_wide=*/false);
   p.nsplit = (nsteps + p.steps - 1) / p.steps;
   // the ring; the split-K partial tile and rowsums reuse it
   p.smem = NST * (p.bm * p.bk + p.bk * BN);
@@ -105,14 +99,6 @@ __device__ __forceinline__ uint8_t quantize_level(float v, float n) {
   float r = rintf(__fmul_rn(x, n));
   r = fminf(fmaxf(r, 0.0f), n);
   return static_cast<uint8_t>(__float2uint_rn(r));
-}
-
-// Byte offset of 16-byte chunk c of row r in an A stage (BK bytes a row):
-// the 8 rows an ldmatrix phase reads land in 8 distinct bank groups.
-template <int BK>
-__device__ __forceinline__ int a_off(int r, int c) {
-  constexpr int CPR = BK / 16;  // 4 or 8 chunks a row
-  return r * BK + ((c ^ ((r / (8 / CPR)) & (CPR - 1))) << 4);
 }
 
 // a_mode: 0 u8 levels by cp.async (K % 16 == 0, 16-byte aligned), 1 u8

@@ -1,9 +1,12 @@
-// u8 tensor-core building blocks shared by fused_qgemm.cu and
-// conv_implicit.cu: cp.async, ldmatrix, mma.sync m16n8k32 on u8 levels,
-// and the register transpose that feeds the mma's K-contiguous B operand
-// from a (K, N) weight tile staged 64 bytes (64 columns) a K row.
+// Integer tensor-core building blocks shared by fused_qgemm.cu,
+// conv_implicit.cu, int8_matmul.cu and bitgemm.cu: cp.async, ldmatrix,
+// mma.sync m16n8k32 on u8 and s8 operands, the register transpose that
+// feeds the mma's K-contiguous B operand from a (K, N) tile staged 64
+// bytes (64 columns) a K row, and the int32 split-K combine over a
+// thread-block cluster.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +52,23 @@ __device__ __forceinline__ void mma_u8(int (&c)[4], const unsigned (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk c of row r in an A stage (BK bytes a row):
+// the 8 rows an ldmatrix phase reads land in 8 distinct bank groups.
+template <int BK>
+__device__ __forceinline__ int a_off(int r, int c) {
+  constexpr int CPR = BK / 16;  // 4 or 8 chunks a row
+  return r * BK + ((c ^ ((r / (8 / CPR)) & (CPR - 1))) << 4);
 }
 
 // Byte offset of 16-byte chunk c of K row k in a weight stage (4 chunks a
@@ -98,6 +118,74 @@ __device__ __forceinline__ void store4(float* row, int col, int N,
     for (int q = 0; q < 4; ++q)
       if (col + q < N) row[col + q] = v[q];
   }
+}
+
+__device__ __forceinline__ void store4(int* row, int col, int N,
+                                       const int (&v)[4]) {
+  if ((N & 3) == 0 && col + 3 < N) {
+    *reinterpret_cast<int4*>(row + col) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (col + q < N) row[col + q] = v[q];
+  }
+}
+
+constexpr int SMS = 132;           // H100 SXM
+constexpr int BLOCKS_PER_SM = 4;   // split-K at 16-row tiles fills to this
+constexpr int MAX_SPLIT = 8;       // portable thread-block cluster size
+
+// K steps a split for a launch of `tiles` output tiles over `nsteps` K
+// steps, the split-K rule of every kernel here: 16-row (`skinny`) tiles
+// split until the grid holds about BLOCKS_PER_SM blocks on each SM, at
+// least two steps a split; larger tiles, where `split_wide`, only while
+// they do not fill the SMs once, at least four steps a split; at most
+// MAX_SPLIT splits.  The splits are ceil(nsteps / steps).  Mirrored on
+// the CPU by kernels/_lib.py split_steps.
+inline int split_steps(int tiles, int nsteps, bool skinny,
+                       bool split_wide = true) {
+  int split = skinny ? (SMS * BLOCKS_PER_SM + tiles - 1) / tiles
+              : (split_wide && tiles < SMS) ? (SMS + tiles - 1) / tiles
+                                            : 1;
+  const int cap = nsteps / (skinny ? 2 : 4);
+  split = split < MAX_SPLIT ? split : MAX_SPLIT;
+  split = split < cap ? split : cap;
+  split = split > 1 ? split : 1;
+  return (nsteps + split - 1) / split;
+}
+
+constexpr int RED_PITCH = W_ROW + 4;  // int32 pitch of a split's partial
+
+// Split-K over a thread-block cluster along z (one cluster a tile, one
+// block a K split): each block has written its (BM, 64) int32 partial
+// tile to `red` in its own shared memory (pitch RED_PITCH); block r sums
+// rows r, r + S, ... of all S partials through distributed shared memory
+// and stores them.  One launch, no workspace, deterministic.
+template <int BM, int THREADS>
+__device__ __forceinline__ void cluster_sum_store(int* red, int* out, int m0,
+                                                  int n0, int M, int N) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int nsplit = static_cast<int>(gridDim.z);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mine = (BM - rank + nsplit - 1) / nsplit;
+  for (int e = threadIdx.x; e < mine * (W_ROW / 4); e += THREADS) {
+    const int lr = rank + (e / (W_ROW / 4)) * nsplit;
+    const int lc = (e % (W_ROW / 4)) * 4;
+    int sum[4] = {0, 0, 0, 0};
+    for (int q = 0; q < nsplit; ++q) {
+      const int* rem = cluster.map_shared_rank(red, q);
+      const int4 v = *reinterpret_cast<const int4*>(rem + lr * RED_PITCH + lc);
+      sum[0] += v.x;
+      sum[1] += v.y;
+      sum[2] += v.z;
+      sum[3] += v.w;
+    }
+    if (m0 + lr < M) store4(out + static_cast<size_t>(m0 + lr) * N, n0 + lc,
+                            N, sum);
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
 
 }  // namespace u8mma

@@ -10,6 +10,7 @@ build.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, keyed by
 kernel name (:data:`KERNELS` names each kernel's source).
+:func:`split_steps` is the split-K rule the kernels' plans share.
 """
 from __future__ import annotations
 
@@ -38,9 +39,29 @@ KERNELS = {"fused_qgemm": "fused_qgemm", "conv_implicit": "conv_implicit",
            "int8_matmul": "int8_matmul"}
 LAUNCHES = {name: 0 for name in KERNELS}
 
+# csrc/u8_mma.cuh's split-K constants: K is split until the grid holds
+# about BLOCKS_PER_SM blocks on each of SMS SMs, at most MAX_SPLIT ways
+# (the portable cluster size)
+SMS, BLOCKS_PER_SM, MAX_SPLIT = 132, 4, 8
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc/ptxas output of the build
 BUILD_SECONDS: dict[str, float] = {}
+
+
+def split_steps(tiles: int, nsteps: int, skinny: bool,
+                split_wide: bool = True) -> int:
+    """K steps a split (``csrc/u8_mma.cuh`` ``split_steps``, which every
+    kernel's ``plan_for`` uses): 16-row (``skinny``) tiles split until the
+    grid holds about BLOCKS_PER_SM blocks a SM, at least two steps a
+    split; larger tiles, where ``split_wide``, only while they do not fill
+    the SMs once, at least four steps a split; at most MAX_SPLIT splits."""
+    if skinny:
+        split = -(-SMS * BLOCKS_PER_SM // tiles)
+    else:
+        split = -(-SMS // tiles) if split_wide and tiles < SMS else 1
+    split = max(1, min(split, MAX_SPLIT, nsteps // (2 if skinny else 4)))
+    return -(-nsteps // split)
 
 
 def reset_launches() -> None:
@@ -123,25 +144,27 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def count_device_ops(fn, calls: int = 4, windows: int = 3) -> int:
+def count_device_ops(fn) -> int:
     """Operations one ``fn()`` puts on the device (kernels, memsets,
-    copies), counted with ``torch.profiler`` over ``calls`` calls and
-    rounded up (the tracer may drop a record at the start of a window).
-    A window that delivers no device record at all (seen on an H100 after
-    a dozen or more profiler sessions in one process) is taken again, at
-    most ``windows`` times; a nonzero count is returned as it is."""
+    copies): the nodes of a CUDA graph captured from one call, after a
+    warm-up call on a side stream (builds, lazy module loads).  Exact,
+    where counting ``torch.profiler`` records was not: on an H100, deep
+    into a long process, three profiler windows in a row delivered no
+    device record at all."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
-            break
-    return -(-n // calls)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value

@@ -2,13 +2,18 @@
 
 Port of ``repro/kernels/bitgemm.py`` (``bitgemm_packed_pallas``).  The CUDA
 kernel is ``csrc/bitgemm.cu``; its source note says what bounds it on an
-H100 and how it tiles.  :func:`bitgemm_packed` is the wrapper: a CPU tensor
+H100 and how it is laid out: ``mma`` on the binary tensor cores
+(``.b1 .and.popc``) fed straight from the packed planes, and split-K over a
+thread-block cluster for skinny M (the plan is the ``.cu`` file's
+``plan_for``, exported as ``bitgemm_packed_plan``; :func:`packed_plan` is
+its CPU-side copy).  :func:`bitgemm_packed` is the wrapper: a CPU tensor
 takes :func:`bitgemm_packed_plain`, a CUDA tensor launches the kernel or
 raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +22,53 @@ from repro_torch.core.bitplane import LANE
 from . import _lib
 
 NAME = "bitgemm_packed"
+
+# csrc/bitgemm.cu's plan constants: BN output columns a block (16 rows at
+# M <= 32, 64 for one plane pair where those tiles fill the SMs twice
+# over, else 32), KW_STEP words of K a stage (ROW bytes a staged plane
+# row), at most MAX_NST stages in SMEM_MAX bytes of shared memory; K is
+# split by _lib.split_steps, counted in stages
+BN, KW_STEP, MAX_NST, SMEM_MAX = 64, 16, 4, 232448
+ROW, RED_PITCH = 4 * KW_STEP, BN + 4
+
+
+class PackedPlan(NamedTuple):
+    bm: int       # rows a block
+    nst: int      # stages of the cp.async ring
+    nsplit: int   # K splits: one thread-block cluster a tile
+    steps: int    # stages a split
+    smem: int     # dynamic shared memory a block
+
+
+def packed_plan(m: int, n: int, kw: int, a_bits: int,
+                w_bits: int) -> PackedPlan:
+    """The launch plan ``csrc/bitgemm.cu`` makes for (M, N, Kw) words at
+    the given widths: its ``plan_for``, copied here so the CPU can read it
+    (the card's tests hold the two equal through :func:`kernel_plan`)."""
+    tiles64 = -(-m // 64) * -(-n // BN)
+    bm = (16 if m <= 32 else
+          64 if a_bits * w_bits == 1 and tiles64 >= 2 * _lib.SMS else 32)
+    stage = (a_bits * bm + w_bits * BN) * ROW
+    nst = min(MAX_NST, SMEM_MAX // stage)
+    tiles = max(1, -(-m // bm) * -(-n // BN))
+    nsteps = max(1, -(-kw // KW_STEP))
+    steps = _lib.split_steps(tiles, nsteps, bm == 16)
+    nsplit = -(-nsteps // steps)
+    return PackedPlan(bm, nst, nsplit, steps,
+                      max(nst * stage, bm * RED_PITCH * 4 if nsplit > 1
+                          else 0))
+
+
+def kernel_plan(m: int, n: int, kw: int, a_bits: int,
+                w_bits: int) -> PackedPlan:
+    """The plan the built kernel's ``bitgemm_packed_plan`` returns (needs
+    ``nvcc``: the card's tests)."""
+    plan = (ctypes.c_int * 5)()
+    i = ctypes.c_int
+    fn = _lib.launcher(NAME, [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)],
+                       "plan")
+    _lib.check_launch(NAME, fn(m, n, kw, a_bits, w_bits, plan))
+    return PackedPlan(*plan)
 
 
 def bitgemm_packed_plain(a_planes: torch.Tensor, w_planes: torch.Tensor, *,
@@ -64,8 +116,6 @@ def bitgemm_packed(a_planes: torch.Tensor, w_planes: torch.Tensor, *,
                          f"{a_planes.device}")
     _, m, kw = a_planes.shape
     n = w_planes.shape[1]
-    if kw == 0:
-        return torch.zeros((m, n), dtype=torch.int32, device=a_planes.device)
     out = torch.empty((m, n), dtype=torch.int32, device=a_planes.device)
     if m == 0 or n == 0:
         return out

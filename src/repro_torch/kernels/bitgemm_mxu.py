@@ -3,13 +3,17 @@
 Port of ``repro/kernels/bitgemm_mxu.py`` (``int8_matmul_pallas``), the
 kernel the reference's MXU mapping runs on the nibble groups of the levels
 (``ops.bitgemm_mxu``).  The CUDA kernel is ``csrc/int8_matmul.cu``; its
-source note says what bounds it on an H100 and how it tiles.
-:func:`int8_matmul` is the wrapper: a CPU tensor takes
+source note says what bounds it on an H100 and how it is laid out: s8
+tensor-core ``mma`` on a ``cp.async`` ring, and split-K over a
+thread-block cluster (the plan is the ``.cu`` file's ``plan_for``,
+exported as ``int8_matmul_plan``; :func:`matmul_plan` is its CPU-side
+copy).  :func:`int8_matmul` is the wrapper: a CPU tensor takes
 :func:`int8_matmul_plain`, a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +21,41 @@ from repro_torch.core.and_accum import level_gemm_exact
 from . import _lib
 
 NAME = "int8_matmul"
+
+# csrc/int8_matmul.cu's plan constants: BN output columns a block, NST
+# stages of the cp.async ring; K is split by _lib.split_steps
+BN, NST = 64, 4
+
+
+class MatmulPlan(NamedTuple):
+    bm: int       # rows a block
+    bk: int       # K bytes a pipeline stage
+    nsplit: int   # K splits: one thread-block cluster a tile
+    steps: int    # K steps a split
+    smem: int     # dynamic shared memory a block
+
+
+def matmul_plan(m: int, n: int, k: int) -> MatmulPlan:
+    """The launch plan ``csrc/int8_matmul.cu`` makes for (M, N, K): its
+    ``plan_for``, copied here so the CPU can read it (the card's tests
+    hold the two equal through :func:`kernel_plan`)."""
+    bm = 16 if m <= 32 else 64
+    bk = 128 if bm == 16 else 64
+    tiles = max(1, -(-m // bm) * -(-n // BN))
+    nsteps = max(1, -(-k // bk))
+    steps = _lib.split_steps(tiles, nsteps, bm == 16)
+    return MatmulPlan(bm, bk, -(-nsteps // steps), steps,
+                      NST * (bm * bk + bk * BN))
+
+
+def kernel_plan(m: int, n: int, k: int) -> MatmulPlan:
+    """The plan the built kernel's ``int8_matmul_plan`` returns (needs
+    ``nvcc``: the card's tests)."""
+    plan = (ctypes.c_int * 5)()
+    i = ctypes.c_int
+    fn = _lib.launcher(NAME, [i, i, i, ctypes.POINTER(ctypes.c_int)], "plan")
+    _lib.check_launch(NAME, fn(m, n, k, plan))
+    return MatmulPlan(*plan)
 
 
 def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,15 +86,15 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, any shape."""
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, any shape and any base
+    alignment (the kernel stages rows cp.async cannot take through its
+    masked path)."""
     _check(a, b)
     if a.device.type == "cpu":
         return int8_matmul_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {a.device}")
     (m, k), n = a.shape, b.shape[1]
-    if k == 0:
-        return torch.zeros((m, n), dtype=torch.int32, device=a.device)
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out

@@ -24,11 +24,9 @@ from . import _lib
 NAME = "fused_qgemm"
 
 # csrc/fused_qgemm.cu's plan constants: BN output columns a block, NST
-# stages of the cp.async ring; at M <= 32 (16-row tiles) K is split until
-# the grid holds about BLOCKS_PER_SM blocks on each of SMS SMs, at most
-# MAX_SPLIT ways (the portable cluster size) and at least two K steps a
-# split
-BN, NST, SMS, BLOCKS_PER_SM, MAX_SPLIT = 64, 4, 132, 4, 8
+# stages of the cp.async ring; only 16-row tiles (M <= 32) split K, by
+# _lib.split_steps
+BN, NST = 64, 4
 
 
 class GemmPlan(NamedTuple):
@@ -47,9 +45,7 @@ def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
     bk = 128 if bm == 16 else 64
     tiles = max(1, -(-m // bm) * -(-n // BN))
     nsteps = max(1, -(-k // bk))
-    split = -(-SMS * BLOCKS_PER_SM // tiles) if bm == 16 else 1
-    split = max(1, min(split, MAX_SPLIT, nsteps // 2))
-    steps = -(-nsteps // split)
+    steps = _lib.split_steps(tiles, nsteps, bm == 16, split_wide=False)
     return GemmPlan(bm, bk, -(-nsteps // steps), steps,
                     NST * (bm * bk + bk * BN))
 

@@ -42,9 +42,9 @@ from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.quant import weight_levels  # noqa: E402
 from repro_torch.kernels import _lib, ops  # noqa: E402
 from repro_torch.kernels.bitgemm import (bitgemm_packed,  # noqa: E402
-                                         bitgemm_packed_plain)
+                                         bitgemm_packed_plain, packed_plan)
 from repro_torch.kernels.bitgemm_mxu import (int8_matmul,  # noqa: E402
-                                             int8_matmul_plain)
+                                             int8_matmul_plain, matmul_plan)
 from repro_torch.models import cnn  # noqa: E402
 from test_torch_cnn import _both_plans, _t  # noqa: E402
 from test_torch_forward import _self_calibrated_tol  # noqa: E402
@@ -74,6 +74,22 @@ def _levels(m, k, n, ab, wb, seed):
 @pytest.mark.parametrize("ab,wb", PAIRS)
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_bitgemm_packed_plain_exact_vs_pallas(m, k, n, ab, wb):
+    _packed_parity(m, k, n, ab, wb)
+
+
+# the main path's plane word counts that are no multiple of 8: K =
+# 576 (18 words a row, svhn conv1/2), 2400 (75, AlexNet conv1) and 3456
+# (108, AlexNet conv3/4), at the faithful path's bit widths
+@pytest.mark.parametrize("ab,wb", [(1, 1), (4, 1), (8, 1)])
+@pytest.mark.parametrize("m,k,n", [(40, 576, 70), (17, 2400, 33),
+                                   (9, 3456, 64)])
+def test_bitgemm_packed_plain_exact_vs_pallas_at_main_path_words(m, k, n, ab,
+                                                                 wb):
+    assert (k // 32) % 8 != 0
+    _packed_parity(m, k, n, ab, wb)
+
+
+def _packed_parity(m, k, n, ab, wb):
     a, w = _levels(m, k, n, ab, wb, m + 3 * ab + wb)
     ja = jbp.decompose_packed(jnp.asarray(a).astype(jnp.int32), ab)
     jw = jbp.decompose_packed(jnp.asarray(w.T).astype(jnp.int32), wb)
@@ -298,3 +314,68 @@ def test_svhn_reference_faithful_interpret_matches_port_faithful():
     np.testing.assert_array_equal(port.numpy().argmax(-1), ref_f.argmax(-1))
     assert np.abs(port.numpy() - ref_f).max() <= tol
     assert np.abs(ref_f - ref).max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the CPU copies of the two kernels' launch plans (the card's tests hold
+# each equal to the plan its .cu file exports)
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448   # dynamic shared memory an H100 block may use
+# batch-8 GEMM views (M, K, N) of the faithful path and the activation
+# widths it runs them at (svhn W1A1 and W1A4, AlexNet W1A1)
+BIT_MAIN = [((12800, 576, 64), (1, 4)), ((12800, 576, 128), (1, 4)),
+            ((3200, 1152, 128), (1, 4)), ((3200, 1152, 256), (1, 4)),
+            ((800, 2304, 256), (1, 4)), ((800, 256, 512), (1, 4)),
+            ((6272, 2400, 256), (1,)), ((1568, 2304, 384), (1,)),
+            ((1568, 3456, 384), (1,)), ((1568, 3456, 256), (1,)),
+            ((8, 9216, 4096), (1,)), ((8, 4096, 4096), (1,))]
+# the int8 path's: svhn conv1-6 and AlexNet fc5/fc6
+INT8_MAIN = [mkn for mkn, _ in BIT_MAIN[:6]] + [(8, 9216, 4096),
+                                                 (8, 4096, 4096)]
+
+
+def _with_skinny_rows(shapes):
+    """Each shape as it is and with M = 1, 8 and 33."""
+    return sorted({(mm, k, n) for m, k, n in shapes
+                   for mm in (m, 1, 8, 33)})
+
+
+def _check_split(nsplit, steps, nsteps, bm):
+    assert 1 <= nsplit <= 8                     # portable cluster size
+    assert (nsplit - 1) * steps < nsteps <= nsplit * steps   # none empty
+    assert nsplit == 1 or steps >= (2 if bm == 16 else 4)
+
+
+@pytest.mark.parametrize("m,k,n", _with_skinny_rows(INT8_MAIN))
+def test_int8_matmul_plan_covers_the_main_path_shapes(m, k, n):
+    p = matmul_plan(m, n, k)
+    assert p.bm == (16 if m <= 32 else 64)
+    assert -(-m // p.bm) * p.bm >= m and -(-n // 64) * 64 >= n
+    nsteps = max(1, -(-k // p.bk))
+    _check_split(p.nsplit, p.steps, nsteps, p.bm)
+    # the kernel sets no shared-memory attribute: 48 KB at most, and the
+    # split's int32 partial tile fits in the drained ring
+    assert p.smem == 4 * (p.bm * p.bk + p.bk * 64) <= 48 * 1024 <= SMEM_MAX
+    assert p.smem >= p.bm * 68 * 4
+    if m <= 16 and k >= 4096:                   # fc5/fc6: >= 3 blocks a SM
+        assert -(-n // 64) * p.nsplit >= 3 * 132
+
+
+@pytest.mark.parametrize("m,k,n,ab", [
+    (mm, k, n, ab) for (m, k, n), abs_ in BIT_MAIN
+    for mm in sorted({m, 1, 8, 33}) for ab in abs_])
+def test_bitgemm_packed_plan_covers_the_main_path_shapes(m, k, n, ab):
+    kw = -(-k // 32)
+    p = packed_plan(m, n, kw, ab, 1)
+    assert p.bm == 16 if m <= 32 else p.bm in (32, 64)
+    assert p.bm < 64 or (ab == 1 and -(-m // 64) * -(-n // 64) >= 2 * 132)
+    assert -(-m // p.bm) * p.bm >= m and -(-n // 64) * 64 >= n
+    nsteps = max(1, -(-kw // 16))
+    _check_split(p.nsplit, p.steps, nsteps, p.bm)
+    stage = (ab * p.bm + 64) * 64
+    assert 2 <= p.nst <= 4
+    assert p.nst * stage <= p.smem <= SMEM_MAX
+    assert p.nsplit == 1 or p.smem >= p.bm * 68 * 4
+    # every width up to 8 x 8 still fits a ring of at least two stages
+    assert packed_plan(m, n, kw, 8, 8).nst >= 2

@@ -231,7 +231,21 @@ def test_quantize_pack_kernel_matches_plain(cuda_device, bits, m, k):
 @pytest.mark.parametrize("ab,wb", [(1, 1), (4, 1), (8, 1), (2, 2), (3, 5),
                                    (8, 8)])
 @pytest.mark.parametrize("m,k,n", [(5, 70, 9), (70, 1000, 130),
-                                   (130, 33, 65), (8, 9216, 96)])
+                                   (130, 33, 65), (8, 9216, 96),
+                                   # the main path's word counts that are no
+                                   # multiple of 4 or 8 (Kw 18, 75, 108),
+                                   # N no multiple of 8
+                                   (200, 576, 70), (33, 2400, 100),
+                                   (40, 3456, 61),
+                                   # AlexNet fc5's Kw = 288 at N = 4096: the
+                                   # cluster split-K, at 16-row tiles and at
+                                   # 32-row tiles short of one wave
+                                   (1, 9216, 4096), (8, 9216, 4096),
+                                   (33, 9216, 4096),
+                                   # 64-row tiles at W1A1 (264 of them)
+                                   (4224, 96, 256),
+                                   # Kw = 0: the kernel writes the zeros
+                                   (5, 0, 9)])
 def test_bitgemm_packed_kernel_matches_plain(cuda_device, ab, wb, m, k, n):
     rs = np.random.RandomState(m + 7 * ab + wb)
     a = torch.from_numpy(rs.randint(0, 1 << ab, (m, k)).astype(np.uint8))
@@ -249,7 +263,15 @@ def test_bitgemm_packed_kernel_matches_plain(cuda_device, ab, wb, m, k, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(5, 70, 9), (130, 600, 140),
                                    (8, 9216, 96), (800, 256, 512),
-                                   (33, 17, 3)])
+                                   (33, 17, 3),
+                                   # AlexNet fc5's shape: the cluster split-K
+                                   (1, 9216, 4096), (8, 9216, 4096),
+                                   # K with no 16-byte rows: the masked path
+                                   (40, 31, 24), (70, 48, 33),
+                                   # 64-row tiles split over K
+                                   (800, 2304, 256),
+                                   # K = 0: the kernel writes the zeros
+                                   (5, 0, 9)])
 def test_int8_matmul_kernel_matches_plain_signed(cuda_device, m, k, n):
     gen = torch.Generator(device=cuda_device).manual_seed(m + k)
     a = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8,
@@ -262,6 +284,97 @@ def test_int8_matmul_kernel_matches_plain_signed(cuda_device, m, k, n):
     ref = int8_matmul_plain(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(3, 5), (40, 24)])
+def test_int8_matmul_kernel_at_the_largest_exact_k(cuda_device, m, n):
+    """The largest K that int8_exact admits, every operand -128: each
+    output is 16384 K, one step below 2^31 overflow."""
+    from repro_torch.kernels.bitgemm_mxu import int8_exact
+
+    k = 1
+    while int8_exact(k + 1):
+        k += 1
+    assert k == 131071
+    a = torch.full((m, k), -128, dtype=torch.int8, device=cuda_device)
+    b = torch.full((k, n), -128, dtype=torch.int8, device=cuda_device)
+    got = int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_plain(a, b))
+    assert int(got.min()) == int(got.max()) == 16384 * k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+def test_int8_matmul_kernel_takes_a_base_one_byte_off(cuda_device, which):
+    """A contiguous view one byte into its storage is no 16-byte aligned
+    base: the kernel stages it through its masked path (no copy, no
+    refusal) and still equals the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    m, k, n = 48, 576, 64
+
+    def operand(rows, cols, off):
+        flat = torch.randint(-128, 128, (rows * cols + 1,), generator=gen,
+                             dtype=torch.int8, device=cuda_device)
+        return flat[1:].view(rows, cols) if off else flat[:-1].view(rows,
+                                                                      cols)
+
+    a = operand(m, k, which in ("a", "both"))
+    b = operand(k, n, which in ("b", "both"))
+    assert a.is_contiguous() and b.is_contiguous()
+    assert (a.data_ptr() % 16 != 0) == (which in ("a", "both"))
+    got = int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul_plain(a, b))
+
+
+# the bit-plane kernels' main-path GEMMs at batch 8 (GEMM view M x K x N)
+# and around them: svhn conv1-6, AlexNet conv1-4 and fc5/fc6
+BIT_GEMMS = [(12800, 576, 64), (12800, 576, 128), (3200, 1152, 128),
+             (3200, 1152, 256), (800, 2304, 256), (800, 256, 512),
+             (6272, 2400, 256), (1568, 2304, 384), (1568, 3456, 384),
+             (1568, 3456, 256), (8, 9216, 4096), (8, 4096, 4096),
+             (1, 9216, 4096), (33, 4096, 4096), (5, 70, 9), (0, 0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", BIT_GEMMS)
+def test_int8_plan_export_equals_its_cpu_copy(cuda_device, m, k, n):
+    from repro_torch.kernels.bitgemm_mxu import kernel_plan, matmul_plan
+
+    assert kernel_plan(m, n, k) == matmul_plan(m, n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ab,wb", [(1, 1), (4, 1), (8, 8)])
+@pytest.mark.parametrize("m,k,n", BIT_GEMMS)
+def test_bitgemm_plan_export_equals_its_cpu_copy(cuda_device, m, k, n, ab,
+                                                 wb):
+    from repro_torch.kernels.bitgemm import kernel_plan, packed_plan
+
+    kw = -(-k // 32)
+    assert kernel_plan(m, n, kw, ab, wb) == packed_plan(m, n, kw, ab, wb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,ab", [(8, 9216, 4096, 1),
+                                      (12800, 576, 128, 4),
+                                      (6272, 2400, 256, 1)])
+def test_bitplane_kernels_one_device_op_per_call(cuda_device, m, k, n, ab):
+    """One launch a call, split-K (fc5) included: the cluster combines the
+    partials inside it, so no memset, workspace or second pass."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a_lv = torch.randint(0, 1 << ab, (m, k), generator=gen,
+                         dtype=torch.uint8, device=cuda_device)
+    w_lv = torch.randint(0, 2, (k, n), generator=gen, dtype=torch.uint8,
+                         device=cuda_device)
+    ap = quantize_pack_plain(a_lv, ab)[1]
+    wp = ops.pack_weight_planes(w_lv, 1)
+    a8, w8 = a_lv.view(torch.int8), w_lv.view(torch.int8)
+    assert _lib.count_device_ops(
+        lambda: bitgemm_packed(ap, wp, a_bits=ab, w_bits=1)) == 1
+    assert _lib.count_device_ops(lambda: int8_matmul(a8, w8)) == 1
 
 
 @pytest.mark.gpu
@@ -478,7 +591,8 @@ def test_attention_wrappers_refuse_inputs_they_would_copy(cuda_device):
 @pytest.mark.gpu
 def test_attention_kernels_device_ops_per_call(cuda_device):
     """A call is its kernels and nothing else on the device: at most three
-    operations for attn_flash, two for attn_paged (torch.profiler)."""
+    operations for attn_flash, two for attn_paged (the nodes of a CUDA
+    graph captured from one call)."""
     q = torch.randn((1, 256, 2, 64), device=cuda_device).bfloat16()
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     pq, pk, pv, ppos, table, q_pos = _paged_case(
