@@ -24,9 +24,10 @@ Phases, each of which makes the script exit nonzero when it fails:
    nibble groups and on one signed case) at svhn's six quantized layers
    and AlexNet's (fc5/fc6 for ``int8_matmul``) at batch 8, held to their
    plain versions with ``torch.equal`` and timed beside their bound,
-   their plain version and ``torch._int_mm`` on the levels; the two
-   GEMM kernels' rows count each call's device operations (one for both)
-   and carry their time before the tensor-core redesign (``prev_ms``, a
+   their plain version and ``torch._int_mm`` on the levels (the GEMMs)
+   or a ``Tensor.copy_`` of the input (``quantize_pack``: ``copy_ms``);
+   the three kernels' rows count each call's device operations (one for
+   each) and carry their time before the redesign (``prev_ms``, a
    constant); ``int8_matmul`` is also held and timed at SmolLM-360M's
    four decode GEMMs (8 rows) beside ``torch._int_mm`` at the LM's 24
    padded rows, outside the main path and the ``kernels`` line's sums;
@@ -175,9 +176,11 @@ CNN_PREV_MS = {"svhn conv1": 0.0315, "svhn conv2": 0.0562,
                "alexnet fc5": 0.2560, "alexnet fc6": 0.1156}
 CNN_PREV_MS_SOURCE = ("constant CNN_PREV_MS: the __dp4a kernels before "
                       "their tensor-core redesign, not measured by this run")
-# device operations one call of each bit-plane GEMM kernel may make: one
-# launch (split-K combines inside it, through a cluster)
-BIT_MAX_DEVICE_OPS = {"bitgemm_packed": 1, "int8_matmul": 1}
+# device operations one call of each bit-plane kernel may make: one launch
+# (the GEMMs' split-K combines inside it, through a cluster; quantize_pack
+# writes every word of its outputs, so no memset)
+BIT_MAX_DEVICE_OPS = {"quantize_pack": 1, "bitgemm_packed": 1,
+                      "int8_matmul": 1}
 # each bit-plane GEMM row's kernel ms before the tensor-core redesign of
 # bitgemm_packed (__popc on the CUDA cores) and int8_matmul (__dp4a):
 # constants from a run of this script on those kernels (NVIDIA H100 80GB
@@ -202,6 +205,38 @@ BIT_PREV_MS = {
     "int8_matmul alexnet fc5": 0.2469, "int8_matmul alexnet fc6": 0.1127}
 BIT_PREV_MS_SOURCE = ("constant BIT_PREV_MS: the CUDA-core kernels before "
                       "their tensor-core redesign, not measured by this run")
+# each quantize_pack row's kernel ms (4 bits, batch 8) before its redesign
+# for Hopper (a warp per packed word, planes by __ballot_sync): constants
+# from a run of this script on that kernel (NVIDIA H100 80GB HBM3, 700.00
+# W), printed as ``prev_ms`` on the KERNEL rows and never measured by this
+# run
+QP_PREV_MS = {
+    "quantize_pack svhn conv1 float in": 0.04320,
+    "quantize_pack svhn conv1 levels in": 0.03760,
+    "quantize_pack svhn conv2 float in": 0.04315,
+    "quantize_pack svhn conv2 levels in": 0.03767,
+    "quantize_pack svhn conv3 float in": 0.02431,
+    "quantize_pack svhn conv3 levels in": 0.02159,
+    "quantize_pack svhn conv4 float in": 0.02429,
+    "quantize_pack svhn conv4 levels in": 0.02168,
+    "quantize_pack svhn conv5 float in": 0.01504,
+    "quantize_pack svhn conv5 levels in": 0.01364,
+    "quantize_pack svhn conv6 float in": 0.00671,
+    "quantize_pack svhn conv6 levels in": 0.00637,
+    "quantize_pack alexnet conv1 float in": 0.08179,
+    "quantize_pack alexnet conv1 levels in": 0.07102,
+    "quantize_pack alexnet conv2 float in": 0.02407,
+    "quantize_pack alexnet conv2 levels in": 0.02128,
+    "quantize_pack alexnet conv3 float in": 0.03330,
+    "quantize_pack alexnet conv3 levels in": 0.02913,
+    "quantize_pack alexnet conv4 float in": 0.03325,
+    "quantize_pack alexnet conv4 levels in": 0.02910,
+    "quantize_pack alexnet fc5 float in": 0.00618,
+    "quantize_pack alexnet fc5 levels in": 0.00595,
+    "quantize_pack alexnet fc6 float in": 0.00596,
+    "quantize_pack alexnet fc6 levels in": 0.00580}
+QP_PREV_MS_SOURCE = ("constant QP_PREV_MS: the warp-per-word kernel before "
+                     "its redesign, not measured by this run")
 # SmolLM-360M's decode GEMMs (K, N) at 8 rows: q/o (960, 960), k/v (960,
 # 320), gate/up (960, 2560), down (2560, 960).  The LM runs them on
 # torch._int_mm (rows padded to 24, core/and_accum.centred_gemm_int);
@@ -484,7 +519,8 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
             print("KERNEL", json.dumps(row), flush=True)
 
         # quantize_pack: float in (quant_dense_kernel) and levels in (the
-        # faithful engine), timed at 4 bits
+        # faithful engine), timed at 4 bits beside a Tensor.copy_ of the
+        # same input (a bytes yardstick: it reads and writes the input)
         a = torch.rand((m, k), generator=gen, device=dev) * 1.4 - 0.2
         qp_err = 0.0
         for bits in (1, 4):
@@ -502,14 +538,21 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
         for form, x, nbytes, flops in (
                 ("float in", a, 4 * m * k + m * k + plane_bytes, 6.0 * m * k),
                 ("levels in", r_lv, m * k + plane_bytes, 0.0)):
+            dst = torch.empty_like(x)
             row = dict(tag, form=form, bits=4, max_abs_err=qp_err,
                        ms=time_ms(lambda x=x: quantize_pack(x, 4), 30, flush),
                        plain_ms=time_ms(lambda x=x: quantize_pack_plain(x, 4),
                                         5, flush),
+                       copy_ms=time_ms(lambda x=x, dst=dst: dst.copy_(x), 30,
+                                       flush),
                        library_call="none: no single PyTorch call quantizes "
                                     "and packs bit planes",
                        library_ms=None)
             row["bound_ms"], row["bound_by"] = bound_ms(0.0, nbytes, flops)
+            row.update(_bit_ops_and_prev(
+                f"quantize_pack {model} {lp.name} {form}",
+                lambda x=x: quantize_pack(x, 4), QP_PREV_MS,
+                QP_PREV_MS_SOURCE))
             summary["quantize_pack"].append(row)
             print("KERNEL", json.dumps(row), flush=True)
         if model == "alexnet" and not lp.fc:
@@ -588,8 +631,9 @@ def bitplane_kernel_phase(flush: torch.Tensor) -> dict:
     return summary
 
 
-def _bit_ops_and_prev(key: str, fn) -> dict:
-    """A bit-plane GEMM row's device operations per call (failing above
+def _bit_ops_and_prev(key: str, fn, prev: dict = BIT_PREV_MS,
+                      source: str = BIT_PREV_MS_SOURCE) -> dict:
+    """A bit-plane kernel row's device operations per call (failing above
     BIT_MAX_DEVICE_OPS) and its time before the redesign (a constant)."""
     from repro_torch.kernels import _lib
 
@@ -598,8 +642,8 @@ def _bit_ops_and_prev(key: str, fn) -> dict:
     check(1 <= n_ops <= BIT_MAX_DEVICE_OPS[name],
           f"{key}: {n_ops} device operations per call (at most "
           f"{BIT_MAX_DEVICE_OPS[name]})")
-    return dict(device_ops_per_call=n_ops, prev_ms=BIT_PREV_MS[key],
-                prev_ms_source=BIT_PREV_MS_SOURCE)
+    return dict(device_ops_per_call=n_ops, prev_ms=prev[key],
+                prev_ms_source=source)
 
 
 def _kept_pairs(sq: int, causal: bool, window) -> int:
@@ -1463,6 +1507,10 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             entry["popc_floor_ms"] = sum(r["popc_floor_ms"] for r in timed)
         if name == "quantize_pack":
             entry["library_call"] = timed[0]["library_call"]
+            entry["by_form"] = {
+                form: {k: sum(r[k] for r in timed if r["form"] == form)
+                       for k in ("ms", "bound_ms", "plain_ms", "copy_ms")}
+                for form in ("float in", "levels in")}
         if (name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS
                 or name in BIT_MAX_DEVICE_OPS):
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
@@ -1470,7 +1518,8 @@ def kernels_line(summary: dict, launches: dict) -> dict:
         entry["shapes"] = [
             {k: r[k] for k in ("model", "layer", "case", "main_path", "shape",
                                "a_bits", "form", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "popc_floor_ms",
+                               "copy_ms", "bound_ms", "bound_by",
+                               "popc_floor_ms",
                                "library_ms", "library_call",
                                "device_ops_per_call") if k in r}
             for r in rows if "ms" in r]

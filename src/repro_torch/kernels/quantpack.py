@@ -2,7 +2,7 @@
 
 Port of ``repro/kernels/quantpack.py`` (``quantize_pack_pallas``).  The
 CUDA kernel is ``csrc/quantpack.cu``; its source note says what bounds it
-on an H100 and how a warp builds a packed word.  :func:`quantize_pack` is
+on an H100 and how its two kernels load and pack.  :func:`quantize_pack` is
 the wrapper: a CPU tensor takes :func:`quantize_pack_plain`, a CUDA
 tensor launches the kernel or raises.
 
@@ -46,7 +46,9 @@ def _check(a: torch.Tensor, bits: int) -> None:
 def quantize_pack(a: torch.Tensor, bits: int):
     """(M, K) float32 activations or uint8 levels -> ``(levels uint8 (M,
     K), planes int32 (bits, M, ceil(K/32)))``, planes packed LSB first
-    along K with the bit patterns of the reference's uint32 words."""
+    along K with the bit patterns of the reference's uint32 words.  On
+    the device: one ``torch.empty`` an output and one launch; any
+    contiguous input is taken, at any offset into its storage."""
     _check(a, bits)
     if a.device.type == "cpu":
         return quantize_pack_plain(a, bits)

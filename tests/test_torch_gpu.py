@@ -209,14 +209,31 @@ def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("m,k", [(5, 70), (3, 33), (130, 1), (800, 2304),
-                                 (8, 9216)])
+                                 (8, 9216),
+                                 # svhn conv1-2's and AlexNet conv1's
+                                 # patches at batch 8
+                                 (12800, 576), (6272, 2400),
+                                 # K % 32 == 0 with a last, partial tile
+                                 (3, 96), (37, 320),
+                                 # K % 32 != 0: a thread per word, its
+                                 # loads 16 bytes wide (K = 48), 8 (40),
+                                 # 4 (100: K % 16 != 0 for levels in) or
+                                 # 4-byte floats and 1-byte levels (37:
+                                 # K % 4 != 0 for floats in)
+                                 (6, 48), (6, 40), (7, 100), (9, 37),
+                                 # empty: no launch
+                                 (0, 70), (5, 0), (0, 0)])
 def test_quantize_pack_kernel_matches_plain(cuda_device, bits, m, k):
+    """Every bit width; the staged tiles of K % 32 == 0, a last tile
+    partly filled; tails of a row's last word (K % 32 != 0) and the load
+    widths the kernel picks from K; the planes' tail bits are zero."""
     rs = np.random.RandomState(m * bits + k)
     n = (1 << bits) - 1
     a = rs.uniform(-0.3, 1.3, (m, k)).astype(np.float32)
-    a[0] = ((rs.randint(0, n + 1, k) + 0.5) / n).astype(np.float32)  # ties
+    if m:
+        a[0] = ((rs.randint(0, n + 1, k) + 0.5) / n).astype(np.float32)  # ties
     a = torch.from_numpy(a).to(cuda_device)
     lv, pk = quantize_pack(a, bits)
     ref_lv, ref_pk = quantize_pack_plain(a, bits)
@@ -225,6 +242,46 @@ def test_quantize_pack_kernel_matches_plain(cuda_device, bits, m, k):
     lv2, pk2 = quantize_pack(ref_lv, bits)     # levels in
     torch.cuda.synchronize()
     assert lv2 is ref_lv and torch.equal(pk2, ref_pk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [3, 8])
+@pytest.mark.parametrize("form,offset", [("levels", 1), ("levels", 4),
+                                         ("levels", 8), ("float", 4),
+                                         ("float", 8), ("float", 12)])
+@pytest.mark.parametrize("m,k", [(40, 576), (9, 37)])
+def test_quantize_pack_kernel_takes_a_base_off_16_bytes(cuda_device, form,
+                                                        offset, m, k, bits):
+    """A contiguous view ``offset`` bytes into its storage is no 16-byte
+    aligned base: the kernel loads it at the widest width that divides
+    both the row and the base (no copy, no refusal) and still equals the
+    plain version."""
+    rs = np.random.RandomState(offset + k + bits)
+    if form == "levels":
+        flat = rs.randint(0, 1 << bits, m * k + offset).astype(np.uint8)
+        skip = offset
+    else:
+        flat = rs.uniform(-0.3, 1.3, m * k + offset // 4).astype(np.float32)
+        skip = offset // 4
+    a = torch.from_numpy(flat).to(cuda_device)[skip:].view(m, k)
+    assert a.is_contiguous() and a.data_ptr() % 16 == offset
+    lv, pk = quantize_pack(a, bits)
+    ref_lv, ref_pk = quantize_pack_plain(a, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(lv, ref_lv) and torch.equal(pk, ref_pk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels_in", [False, True])
+@pytest.mark.parametrize("m,k", [(12800, 576), (9, 37)])
+def test_quantize_pack_one_device_op_per_call(cuda_device, levels_in, m, k):
+    """One launch a call and nothing beside it: the kernel writes every
+    word of the planes, tails included, so there is no memset."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k)
+    a = torch.rand((m, k), generator=gen, device=cuda_device)
+    if levels_in:
+        a = quantize_pack_plain(a, 4)[0]
+    assert _lib.count_device_ops(lambda: quantize_pack(a, 4)) == 1
 
 
 @pytest.mark.gpu
