@@ -74,6 +74,24 @@ Phases, each of which makes the script exit nonzero when it fails:
    the plain versions and continuous against alone (a token may differ
    only where the plain run's top-2 logit margin is under LM_MARGIN_TOL),
    and one decode step of each engine is profiled;
+5b. resilience (power intermittency, the paper's second claim), one
+   ``RESILIENCE`` line: full-width svhn W1A8 compiled on the card, saved
+   and reloaded through ``api.load`` (logits equal bit for bit; compile
+   and load ms on the card feed ``plan_resume_study``), and
+   ``launch.plan_smoke --device cuda`` in fresh processes (its compile and
+   load, each a process's first, feed the study too); the W1A8 plan
+   served by ``ResilientServeEngine`` with a faithful W1A1 fallback under
+   a scripted fault plan (a staging corruption, a power loss at a
+   dispatch, a device drop that trips the degrade policy): every answer
+   equals the plain engine's on its own plan bit for bit, the counters
+   match the schedule and ``fused_qgemm``, ``conv_implicit``,
+   ``quantize_pack`` and ``bitgemm_packed`` launch; full-width
+   SmolLM-360M through ``EpochLMRunner`` with decode epoch checkpoints,
+   killed by a power loss mid-decode: the resumed tokens equal the
+   fault-free run's (bytes and seconds per commit printed); and
+   ``ContinuousLMEngine`` with ``checkpoint_dir`` and a scripted power
+   loss: every result equals the fault-free run's, ``attn_paged``
+   launches;
 6. one JSON line listing the kernels, then the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
@@ -244,6 +262,48 @@ QP_PREV_MS_SOURCE = ("constant QP_PREV_MS: the warp-per-word kernel before "
 LM_INT8_GEMMS = ((960, 960), (960, 320), (960, 2560), (2560, 960))
 LM_INT8_ROWS, LM_INT_MM_ROWS = 8, 24
 
+
+# the resilience phase: svhn requests and the scripted fault schedule
+# (per-site poll counts: the staging of bucket 0 is corrupted and restaged,
+# bucket 1 loses power at its dispatch, bucket 2's device drops, which
+# trips the policy: 2 kill-class faults in a window of 4)
+RES_SVHN_REQUESTS = 32
+RES_CNN_FAULTS = (("staging", 0, "staging_corruption"),
+                  ("dispatch", 1, "power_loss"),
+                  ("dispatch", 2, "device_drop"))
+# the resumed LM decode: batch, prompt, horizon (16 decode steps in epochs
+# of 4; one commit after prefill and one per epoch) and the kill point (the
+# third decode epoch's gate)
+RES_LM_BATCH, RES_LM_PROMPT, RES_LM_NEW, RES_LM_EPOCH = 2, 256, 17, 4
+RES_LM_KILL = ("decode", 2, "power_loss")
+# the continuous engine under a power loss: slots, pages, requests
+RES_CONT_SLOTS, RES_CONT_PAGES, RES_CONT_REQUESTS = 4, 64, 6
+RES_CONT_EPOCH, RES_CONT_KILL = 4, ("decode", 6, "power_loss")
+
+# a fresh interpreter's compile or load of the resilience phase's svhn W1A8
+# plan (argv: "compile" | "load", the plan's base path): what a node back
+# from a power loss pays; the params are drawn first, so both modes start
+# timing with the CUDA context up
+RES_COLD_PLAN = r"""
+import json, sys, time, torch
+from repro_torch import api
+from repro_torch.core.quant import W1A8
+from repro_torch.models.cnn import init_cnn, svhn_cnn_spec
+mode, base = sys.argv[1:]
+spec = svhn_cnn_spec()
+params = init_cnn(torch.Generator(device="cuda").manual_seed(0), spec)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+if mode == "compile":
+    c = api.build(spec, W1A8, params=params, img_hw=40, name="svhn").compile(
+        target="cuda", batch_hints=(1, 8))
+else:
+    c = api.load(base, quant=W1A8, model="svhn", backend="cuda",
+                 device="cuda")
+torch.cuda.synchronize()
+print(json.dumps(dict(ms=1e3 * (time.perf_counter() - t0),
+                      fingerprint=c.fingerprint())))
+"""
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1367,6 +1427,243 @@ def lm_main_path(card: str) -> dict:
     return report
 
 
+def _sync_ms(fn):
+    """(result, wall ms) of ``fn()``, the card synchronized on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def resilience_phase(card: str) -> dict:
+    """Plan artifacts, resilient CNN serving with a degrade, a resumed LM
+    decode and a resumed continuous engine, on the card."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A1, W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.engine import (CNNRunner, ContinuousLMEngine,
+                                           ServeEngine)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import init_cnn, svhn_cnn_spec
+    from repro_torch.models.layers import prequantize_params
+    from repro_torch.pim.intermittent import plan_resume_study
+    from repro_torch.resilience import (DegradePolicy, EpochLMRunner,
+                                        FaultPlan, ResilienceConfig,
+                                        ResilientServeEngine)
+
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "resilience")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    report = dict(card=card)
+
+    # ---- plan artifacts: compile, save, reload, a fresh-process reload
+    spec = svhn_cnn_spec()
+    params = init_cnn(torch.Generator(device=dev).manual_seed(0), spec)
+    primary, compile_ms = _sync_ms(lambda: api.build(
+        spec, W1A8, params=params, img_hw=40, name="svhn").compile(
+        target="cuda", batch_hints=(1, 8)))
+    primary.save(os.path.join(work, "svhn_w1a8"))
+    loaded, load_ms = _sync_ms(lambda: api.load(
+        os.path.join(work, "svhn_w1a8"), quant=W1A8, model="svhn",
+        backend="cuda", device="cuda"))
+    rs = np.random.RandomState(5)
+    images = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+              for _ in range(RES_SVHN_REQUESTS)]
+    x = torch.from_numpy(np.stack(images[:8])).to(dev)
+    check(torch.equal(loaded.forward(x), primary.forward(x)),
+          "reloaded plan's logits differ from the fresh compile's")
+    check(loaded.fingerprint() == primary.fingerprint(),
+          "reloaded plan's fingerprint differs")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.plan_smoke", "--device",
+         "cuda", "--out", os.path.join(work, "plan_smoke")],
+        env=env, capture_output=True, text=True, timeout=300)
+    smoke_s = time.perf_counter() - t0
+    check(smoke.returncode == 0 and "PLAN SMOKE OK" in smoke.stdout,
+          f"plan_smoke --device cuda failed: {smoke.stdout[-2000:]} "
+          f"{smoke.stderr[-2000:]}")
+    cold = {}
+    for mode in ("compile", "load"):
+        p = subprocess.run(
+            [sys.executable, "-c", RES_COLD_PLAN, mode,
+             os.path.join(work, "svhn_w1a8")],
+            env=env, capture_output=True, text=True, timeout=300)
+        check(p.returncode == 0, f"cold svhn W1A8 {mode} failed: "
+                                 f"{p.stdout[-2000:]} {p.stderr[-2000:]}")
+        cold[mode] = json.loads(p.stdout.strip().splitlines()[-1])
+        check(cold[mode]["fingerprint"] == primary.fingerprint(),
+              f"cold svhn W1A8 {mode}: fingerprint {cold[mode]} differs")
+
+    def study(c_ms, l_ms):
+        # the resume study at an MTBF where a replan is possible but costly
+        # (3x the compile), frames a tenth of the compile
+        r = plan_resume_study(compile_us=1e3 * c_ms, plan_load_us=1e3 * l_ms,
+                              mtbf_us=3e3 * c_ms, frame_time_us=1e2 * c_ms)
+        return dict(compile_ms=c_ms, load_ms=l_ms,
+                    efficiency_gain=r["efficiency_gain"],
+                    recompile_efficiency=r["recompile"]["efficiency"],
+                    reload_efficiency=r["plan_reload"]["efficiency"],
+                    mtbf_us=3e3 * c_ms, frame_time_us=1e2 * c_ms)
+
+    # a node back from a power loss starts a fresh process: the cold
+    # compile and load are each the first of their process; this process
+    # is warm from the phases before
+    report["plan"] = dict(
+        compile_ms=compile_ms, load_ms=load_ms,
+        fingerprint=primary.fingerprint(), reload_bit_identical=True,
+        plan_smoke_ok=True, plan_smoke_wall_s=smoke_s,
+        plan_resume_study=dict(
+            cold=study(cold["compile"]["ms"], cold["load"]["ms"]),
+            warm=study(compile_ms, load_ms)))
+
+    # ---- resilient CNN serving with a degrade to the faithful W1A1 plan
+    fallback = api.build(spec, dataclasses.replace(W1A1, engine="faithful"),
+                         params=params, img_hw=40).compile(
+        target="cuda", batch_hints=(1, 8))
+    plain = {}
+    for i, c in enumerate((primary, fallback)):
+        plain[i] = [r.value for r in ServeEngine(
+            CNNRunner(c.plan), max_batch=8).serve(images)]
+    dep = primary.serve(max_batch=8, resilience=ResilienceConfig(
+        fault_plan=FaultPlan.scripted(RES_CNN_FAULTS),
+        degrade=DegradePolicy(fault_window=4, fault_threshold=2)),
+        fallback=fallback)
+    eng = dep.engine
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.serve(images)
+    torch.cuda.synchronize()
+    cnn_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    check(len(res) == RES_SVHN_REQUESTS and not eng.dead_letters,
+          f"resilient svhn: {len(res)} answers, {eng.dead_letters}")
+    for r in res:
+        check(np.array_equal(r.value, plain[eng.result_runner[r.rid]][r.rid]),
+              f"resilient svhn request {r.rid}: logits differ from the plain "
+              f"engine's on plan {eng.result_runner[r.rid]}")
+    st = eng.stats
+    want = dict(faults=2, power_losses=1, device_drops=1, staging_retries=1,
+                degrades=1, retries=16, dispatches=4, requests=32)
+    got = {k: st[k] for k in want}
+    check(got == want, f"resilient svhn counters {got} != {want}")
+    by_runner = [sum(v == i for v in eng.result_runner.values())
+                 for i in (0, 1)]
+    check(by_runner == [8, 24], f"answers per plan {by_runner}")
+    want_l = dict(conv_implicit=5, fused_qgemm=1, quantize_pack=18,
+                  bitgemm_packed=18)
+    check(launches == want_l, f"resilient svhn launches {launches} != "
+                              f"{want_l}")
+    report["cnn"] = dict(
+        requests=RES_SVHN_REQUESTS, answers_by_plan=by_runner,
+        counters=got, energy_pj=st["energy_pj"], wall_s=cnn_s,
+        launches=launches, bit_identical=True)
+    del eng, dep, loaded
+
+    # ---- full-width SmolLM-360M: a decode resumed from its epoch commit
+    cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+    lm_params = prequantize_params(T.init_lm(
+        torch.Generator(device=dev).manual_seed(4), cfg, SINGLE), cfg)
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab, RES_LM_PROMPT).astype(np.int32)
+               for _ in range(RES_LM_BATCH)]
+
+    def lm_engine(faults=None, ckdir=None):
+        return ResilientServeEngine(
+            EpochLMRunner(lm_params, cfg, new_tokens=RES_LM_NEW,
+                          epoch_steps=RES_LM_EPOCH),
+            fault_plan=faults, checkpoint_dir=ckdir, max_batch=RES_LM_BATCH)
+
+    (ref_res, ref_ms) = _sync_ms(lambda: lm_engine().serve(prompts))
+    eng = lm_engine(FaultPlan.scripted([RES_LM_KILL]),
+                    os.path.join(work, "decode"))
+    _lib.reset_launches()
+    lm_res, lm_ms = _sync_ms(lambda: eng.serve(prompts))
+    lm_launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    st = eng.stats
+    check(st["resumes"] == 1 and st["prefills"] == 1
+          and st["power_losses"] == 1,
+          f"resumed decode counters {st}")
+    for a, b in zip(lm_res, ref_res):
+        check(a.value.shape == (RES_LM_NEW,) and np.array_equal(a.value,
+                                                                b.value),
+              f"resumed decode request {a.rid}: tokens differ from the "
+              "fault-free run's")
+    report["lm_decode"] = dict(
+        batch=RES_LM_BATCH, prompt_len=RES_LM_PROMPT, new_tokens=RES_LM_NEW,
+        epoch_steps=RES_LM_EPOCH, resumes=st["resumes"],
+        commits=st["commits"], bytes_per_commit=st["commit_bytes"]
+        / st["commits"], commit_s_per_commit=st["commit_s"] / st["commits"],
+        epochs=st["epochs"], executed_steps=st["executed_steps"],
+        fault_free_ms=ref_ms, faulted_ms=lm_ms, launches=lm_launches,
+        bit_identical=True)
+    del eng
+
+    # ---- the continuous engine: a power loss, resumed from its commit
+    rs = np.random.RandomState(7)
+    payloads = [(rs.randint(0, cfg.vocab, int(rs.randint(16, 49)))
+                 .astype(np.int32), int(rs.randint(4, 13)))
+                for _ in range(RES_CONT_REQUESTS)]
+
+    def cont(**kw):
+        return ContinuousLMEngine(lm_params, cfg, num_slots=RES_CONT_SLOTS,
+                                  page_size=CONT_PAGE,
+                                  num_pages=RES_CONT_PAGES, max_seq=64,
+                                  new_tokens=8, **kw)
+
+    c_ref, c_ref_ms = _sync_ms(lambda: cont().serve(payloads))
+    c_plain = cont(reference=True, record_margins=True).serve(payloads)
+    ceng = cont(checkpoint_dir=os.path.join(work, "continuous"),
+                epoch_steps=RES_CONT_EPOCH,
+                faults=FaultPlan.scripted([RES_CONT_KILL]))
+    _lib.reset_launches()
+    c_res, c_ms = _sync_ms(lambda: ceng.serve(payloads))
+    c_launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    cs = ceng.stats
+    check(cs["power_losses"] == 1 and cs["commits"] >= 1,
+          f"continuous counters {cs}")
+    check([r.rid for r in c_res] == [r.rid for r in c_ref],
+          "continuous: resumed run answered other requests")
+    check([r.rid for r in c_plain] == [r.rid for r in c_ref],
+          "continuous: the plain versions' run answered other requests")
+    vs_plain = dict(positions=0, divergences=[])
+    for a, b, p in zip(c_res, c_ref, c_plain):
+        check(np.array_equal(a.value, b.value),
+              f"continuous request {a.rid}: tokens differ from the "
+              "fault-free run's")
+        # attn_paged at this phase's grid and page split, against its
+        # plain version
+        h = _hold_tokens(f"resumed continuous request {a.rid} vs plain",
+                         a.value, p.value, p.margins)
+        vs_plain["positions"] += h["positions"]
+        vs_plain["divergences"] += [dict(d, request=a.rid)
+                                    for d in h["divergences"]]
+    check(c_launches.get("attn_paged", 0) == cfg.n_layers
+          * cs["dispatches"], f"continuous launches {c_launches}")
+    report["continuous"] = dict(
+        requests=RES_CONT_REQUESTS, slots=RES_CONT_SLOTS,
+        pages=RES_CONT_PAGES, epoch_steps=RES_CONT_EPOCH,
+        power_losses=cs["power_losses"], commits=cs["commits"],
+        bytes_per_commit=cs["commit_bytes"] / cs["commits"],
+        commit_s_per_commit=cs["commit_s"] / cs["commits"],
+        steps=cs["steps"], dispatches=cs["dispatches"],
+        fault_free_ms=c_ref_ms, faulted_ms=c_ms, launches=c_launches,
+        bit_identical=True, vs_plain=vs_plain)
+    del ceng
+    shutil.rmtree(work, ignore_errors=True)
+    print("RESILIENCE", json.dumps(report), flush=True)
+    return report
+
+
 def lm_profiles(params, cfg, layers, cont_engine) -> dict:
     """One decode step of each LM engine under the profiler: the bucket
     engine's (batch LM_BATCH at position LM_PROMPT, attention over the
@@ -1577,6 +1874,9 @@ def main() -> int:
     launches.update({k: lm["launches"][k] for k in ("attn_flash",
                                                      "attn_paged")})
     print(f"LM MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    resilience_phase(card)
+    print(f"RESILIENCE PHASE {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernels_line(summary, launches)))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,7 +3,10 @@
 Two kinds of target:
 
 * :class:`ComputeTarget` — the serve backend.  The port has one, ``cuda``
-  (an H100): it routes as the reference's TPU target does — ``implicit``
+  (an H100).  Its ``cost()`` is the reference's roofline formula (compute-
+  vs bandwidth-bound cycles, energy per op and per byte) over the H100's
+  data-sheet figures: the annotation a compiled plan carries per layer
+  and the currency of the resilience degrade budget.  It routes as the reference's TPU target does — ``implicit``
   for deep-K spatial convs whose block fits shared memory, ``fused``
   otherwise — with the TPU's 8 MiB VMEM residency bound replaced by the
   shared-memory bound of the port's implicit kernel, computed by the same
@@ -32,7 +35,7 @@ from repro_torch.pim.mapper import LayerWork, accel_cost
 
 @dataclasses.dataclass(frozen=True)
 class Cost:
-    """One layer's cost on one PIM target."""
+    """One layer's (or model's) cost on one target."""
 
     energy_pj: float
     cycles: float
@@ -66,6 +69,16 @@ IMPLICIT_KDIM_MIN = 512
 ATTN_FLASH_SEQ_MIN = 2048
 ATTN_CHUNK_SEQ_MIN = 8192
 
+# NVIDIA H100 80GB HBM3 (SXM) data-sheet figures at its 700 W limit: the
+# boost clock, the dense int8 tensor-core peak and the HBM3 rate.  The
+# per-op and per-byte energies are ceilings derived from them (the whole
+# board's power spent on that one resource at its peak rate), not
+# measurements: plan annotations only, never read by a serving decision.
+H100_CLOCK_GHZ = 1.98
+H100_INT8_OPS_PER_S = 1.979e15
+H100_BYTES_PER_S = 3.35e12
+H100_POWER_W = 700.0
+
 
 def _implicit_eligible(conv) -> bool:
     return (conv is not None and conv.kh * conv.kw > 1
@@ -84,6 +97,24 @@ class ComputeTarget:
 
     name: str = "cuda"
     kind: str = dataclasses.field(default="compute", init=False)
+    clock_ghz: float = H100_CLOCK_GHZ
+    flops_per_cycle: float = H100_INT8_OPS_PER_S / (H100_CLOCK_GHZ * 1e9)
+    bytes_per_cycle: float = H100_BYTES_PER_S / (H100_CLOCK_GHZ * 1e9)
+    pj_per_flop: float = H100_POWER_W / H100_INT8_OPS_PER_S * 1e12
+    pj_per_byte: float = H100_POWER_W / H100_BYTES_PER_S * 1e12
+
+    def cost(self, geom: LayerGeometry, a_bits: int, w_bits: int) -> Cost:
+        """The reference's roofline estimate: compute-bound vs
+        bandwidth-bound cycles, energy per op plus per byte."""
+        itemsize = 1 if max(a_bits, w_bits) <= 7 else 4
+        flops = 2.0 * geom.macs
+        bytes_moved = float(itemsize * (geom.m * geom.k + geom.k * geom.n)
+                            + 4 * geom.m * geom.n)
+        cycles = max(flops / self.flops_per_cycle,
+                     bytes_moved / self.bytes_per_cycle)
+        return Cost(energy_pj=flops * self.pj_per_flop
+                    + bytes_moved * self.pj_per_byte,
+                    cycles=cycles, bytes_moved=bytes_moved)
 
     def implicit_smem(self, conv, k: int, n: int) -> tuple[int, int]:
         """(bytes one implicit-kernel block needs, the budget): the kernel
@@ -201,6 +232,13 @@ def get_target(name: str) -> Target:
         raise ValueError(
             f"unknown hardware target {name!r}; available targets: "
             f"{', '.join(available_targets())}") from None
+
+
+def target_for_backend(backend: str) -> ComputeTarget:
+    """The compute target named ``backend``; any name without a compute
+    target of its own gets ``cuda``'s (the port's only serve backend)."""
+    t = _REGISTRY.get(_ALIASES.get(backend, backend))
+    return t if isinstance(t, ComputeTarget) else _REGISTRY["cuda"]
 
 
 CUDA = register_target(ComputeTarget())

@@ -11,6 +11,9 @@ test can hold the port against the reference's own levels and scales.
 LM params (``lm_params_from_numpy``) keep the reference's tree: stacked
 per-layer blocks, each prequantized projection ``{"q": (L, K, N) int8
 levels, "s": (L,) float32, "z": (L,) float32}``, the rest float32.
+
+A CNN plan the reference's ``save_plan`` wrote is the port's second
+source of weights (:func:`plan_from_reference`).
 """
 from __future__ import annotations
 
@@ -58,3 +61,48 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
                 for k, v in tree.items()}
 
     return walk(params)
+
+
+def plan_from_reference(path: str, device="cuda"):
+    """Read a CNN plan written by the reference's ``save_plan`` as a port
+    ``ModelPlan`` with its params on ``device``.
+
+    The reference's levels (int8, or int32 at 8 bits) become the port's
+    uint8, checked against each layer's bit width; faithful layers get
+    their weight planes packed (packing is not requantization).  A ``tpu``
+    plan routes as ``cuda`` does, so its engine table is kept, checked
+    feasible on ``cuda``, re-annotated with the ``cuda`` target's costs
+    and relabelled ``backend="cuda"``; its autotune measurements (taken on
+    another backend) are dropped.  A ``cpu`` plan pins the CPU's float
+    engines and is refused."""
+    import dataclasses
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import ops
+
+    meta, params = P._read_plan(path)
+    backend = meta["backend"]
+    if backend == "cpu":
+        raise P.PlanError(
+            f"{path}: a reference plan compiled for backend 'cpu' pins the "
+            "CPU's engine table — recompile it for 'tpu' (which routes as "
+            "cuda does) or compile the params with the port")
+    if backend not in ("tpu", "cuda"):
+        raise P.PlanError(f"{path}: unknown plan backend {backend!r}")
+    layers = tuple(P._layer_from_json(d) for d in meta["layers"])
+    for lp in layers:
+        if lp.fp:
+            continue
+        for b, eng in lp.engines:
+            conv = ops.ConvShape(lp.in_h, lp.in_w, lp.kh, lp.kw, lp.stride,
+                                 lp.padding, batch=b)
+            ok, why = ops.engine_feasible(eng, b * lp.out_h * lp.out_w, lp.k,
+                                          lp.cout, lp.a_bits, lp.w_bits,
+                                          "cuda", conv)
+            if not ok:
+                raise P.PlanError(f"{path}: layer {lp.index} ({lp.name}) "
+                                  f"engine {eng!r} at batch {b} is "
+                                  f"infeasible on cuda: {why} — recompile")
+    plan = P._plan_from_meta(meta, params, device, backend="cuda",
+                             layers=P._annotate_costs(layers, "cuda"))
+    return dataclasses.replace(plan, autotune={})

@@ -26,11 +26,15 @@ per-tensor activation scales a request's levels depend on its bucket, as
 in the reference.  :class:`ContinuousLMEngine` keeps one persistent batch
 of decode slots over a paged KV pool, admits and retires requests between
 steps, and forces per-row scales, so there a request's tokens do not
-depend on its batchmates.
+depend on its batchmates.  With ``checkpoint_dir`` it commits an epoch
+checkpoint every ``epoch_steps`` decode steps and, polled by a
+``FaultPlan`` (``faults``), survives a power loss by rebooting cold and
+resuming from its last commit.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -145,6 +149,36 @@ def _params_device(params) -> torch.device:
     raise ValueError("plan params hold no tensor")
 
 
+def lm_fingerprint(params, cfg, **geometry) -> str:
+    """Stable short hash of what an LM engine's checkpoints depend on, in
+    place of an LM plan's fingerprint until the port has LM plans: the
+    config, the serving ``geometry``, every parameter leaf's path, shape
+    and dtype, and the bytes of its first and last 64 elements (one copy
+    to host).  An engine refuses a checkpoint whose hash differs."""
+    h = hashlib.sha256(repr((cfg, sorted(geometry.items()))).encode())
+    samples = []
+
+    def walk(path, v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                walk(f"{path}/{k}", v[k])
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{path}/{i}", x)
+        elif torch.is_tensor(v):
+            h.update(f"{path}:{tuple(v.shape)}:{v.dtype};".encode())
+            flat = v.detach().reshape(-1)
+            samples.extend(t.contiguous().view(torch.uint8)
+                           for t in (flat[:64], flat[-64:]))
+        else:
+            h.update(f"{path}={v!r};".encode())
+
+    walk("", params)
+    if samples:
+        h.update(torch.cat(samples).cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
 class CNNRunner:
     """Batched CNN serve forward over a compiled plan (image (H, W, C) ->
     logits row)."""
@@ -190,6 +224,15 @@ class LMRunner:
         self.device = params["embed"].device
         self._prefill = make_prefill(params, cfg, self.plan, qmode, reference)
         self._generate: dict = {}   # (prompt_len, horizon) -> decode loop
+        self._fp = None
+
+    def plan_fingerprint(self) -> str:
+        """The identity a bucket's decode checkpoints are tagged with."""
+        if self._fp is None:
+            self._fp = lm_fingerprint(self.params, self.cfg, plan=self.plan,
+                                      qmode=self.qmode,
+                                      reference=self.reference)
+        return self._fp
 
     @staticmethod
     def split_payload(payload) -> tuple:
@@ -423,8 +466,18 @@ class ContinuousLMEngine(_SubmitRetryMixin):
     versions (the oracle); ``record_margins=True`` keeps each greedy
     pick's top-2 logit margin in ``Result.margins``.
 
-    Not ported yet: the reference's epoch checkpoints (``checkpoint_dir``)
-    and fault hooks (``faults``), which come with the intermittency slice.
+    Power-intermittency resilience: with ``checkpoint_dir`` the engine
+    commits an epoch checkpoint every ``epoch_steps`` decode steps — the
+    page pools (copied to host before the commit returns, so the next
+    in-place step cannot reach them) plus the whole host schedule (page
+    table, allocator free list, slots, waiting queue, finished results).
+    A ``PowerLoss`` or ``DeviceDrop`` polled from ``faults`` (a
+    ``FaultPlan``, at each prefill chunk and each decode step) wipes
+    everything volatile and resumes from the last commit; the schedule is
+    deterministic, so the resumed run is bit-identical to an uninterrupted
+    one.  A new engine on the same ``checkpoint_dir`` adopts the state a
+    previous one committed when its params, config and geometry hash to
+    the same ``lm_fingerprint``; otherwise it starts clean.
     """
 
     def __init__(self, params, cfg, *, num_slots: int = 4,
@@ -433,16 +486,13 @@ class ContinuousLMEngine(_SubmitRetryMixin):
                  chunk: int | None = None, plan=None, qmode: str = "serve",
                  max_pending: int = 4096, retry_rng=None,
                  deadline_s: float | None = None,
-                 checkpoint_dir: str | None = None, faults=None,
-                 reference: bool = False, record_margins: bool = False,
+                 checkpoint_dir: str | None = None, epoch_steps: int = 4,
+                 faults=None, reference: bool = False,
+                 record_margins: bool = False,
                  clock: Callable[[], float] = time.perf_counter):
         from repro_torch.configs import SINGLE
         from repro_torch.models import transformer as T
 
-        if checkpoint_dir is not None or faults is not None:
-            raise NotImplementedError("checkpoint_dir and faults (epoch "
-                                      "checkpoints, fault injection) are not "
-                                      "yet ported")
         if num_slots < 1:
             raise ValueError(f"need at least one slot, got {num_slots}")
         quant = cfg.quant
@@ -465,27 +515,53 @@ class ContinuousLMEngine(_SubmitRetryMixin):
         self.max_seq = max_seq or page_size * num_pages
         self.max_pending = max_pending
         self.deadline_s = deadline_s
+        self.faults = faults
         self._rng = _seeded_rng(retry_rng)
         self.table_pages = pages_needed(self.max_seq, page_size)
-        self.pool = PagePool(num_pages, page_size)
+        self.num_pages = num_pages
         self.params = params
         self.device = params["embed"].device
+        self._plan_fp = None     # set with checkpoint_dir
         self._layers = T.unstack_layers(params, cfg)
-        cache = T.init_paged_cache(cfg, self.plan, num_slots, num_pages,
-                                   page_size, self.table_pages,
-                                   device=self.device)
-        self._pools = {k: cache["attn"][k] for k in ("pk", "pv", "ppos")}
-        self._table = np.full((num_slots, self.table_pages),
-                              self.pool.null_page, np.int32)
-        self._slots: list = [None] * num_slots
-        self._waiting: deque[_Pending] = deque()
-        self._results: dict[int, Result] = {}
         self.dead_letters: list[dict] = []
         self._next_rid = 0
         self.program_shapes: set = set()
         self.stats = dict(dispatches=0, requests=0, padded_rows=0, steps=0,
                           admissions=0, retirements=0, prefill_chunks=0,
-                          dead_lettered=0)
+                          dead_lettered=0, commits=0, power_losses=0,
+                          commit_s=0.0, commit_bytes=0)
+        self._cold_start()
+        self.epoch_steps = max(int(epoch_steps), 1)
+        self.ckpt = None
+        if checkpoint_dir is not None:
+            from repro_torch.train.checkpoint import Checkpointer
+
+            self.ckpt = Checkpointer(checkpoint_dir, keep=2,
+                                     async_save=False)
+            self._plan_fp = lm_fingerprint(
+                params, self.cfg, plan=self.plan, qmode=qmode,
+                reference=reference, record_margins=record_margins,
+                num_slots=num_slots, page_size=page_size,
+                num_pages=num_pages, max_seq=self.max_seq, chunk=self.chunk)
+            self._try_restore()  # adopt a previous engine's in-flight state
+
+    def _cold_start(self) -> None:
+        """Everything volatile, as at power-on: fresh pools on the device,
+        an empty page table, allocator, slots, queue and results."""
+        from repro_torch.models import transformer as T
+
+        cache = T.init_paged_cache(self.cfg, self.plan, self.num_slots,
+                                   self.num_pages, self.page_size,
+                                   self.table_pages, device=self.device)
+        self._pools = {k: cache["attn"][k] for k in ("pk", "pv", "ppos")}
+        self.pool = PagePool(self.num_pages, self.page_size)
+        self._table = np.full((self.num_slots, self.table_pages),
+                              self.pool.null_page, np.int32)
+        self._slots: list = [None] * self.num_slots
+        self._waiting: deque[_Pending] = deque()
+        self._results: dict[int, Result] = {}
+        self._step = 0              # decode steps executed (the work clock)
+        self._last_commit = None
 
     # -- device side ---------------------------------------------------------
 
@@ -591,6 +667,7 @@ class ContinuousLMEngine(_SubmitRetryMixin):
         table_row = self._table[slot_i: slot_i + 1]
         logits = None
         for c0 in range(0, s_p, c):
+            self._poll("prefill")
             piece = s.tokens[c0: c0 + c]
             buf = np.zeros((1, c), np.int32)
             buf[0, : len(piece)] = piece
@@ -609,6 +686,7 @@ class ContinuousLMEngine(_SubmitRetryMixin):
         active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return
+        self._poll("decode")
         toks = np.zeros((self.num_slots, 1), np.int32)
         pos = np.zeros((self.num_slots,), np.int32)
         valid = np.zeros((self.num_slots,), np.int32)
@@ -617,6 +695,7 @@ class ContinuousLMEngine(_SubmitRetryMixin):
             pos[i] = s.pos
             valid[i] = 1
         logits = self._dispatch(self._table, toks, pos, valid)
+        self._step += 1
         self.stats["steps"] += 1
         self.stats["padded_rows"] += self.num_slots - len(active)
         for i, s in active:
@@ -655,11 +734,20 @@ class ContinuousLMEngine(_SubmitRetryMixin):
     # -- engine loop ---------------------------------------------------------
 
     def pump(self) -> None:
-        """One scheduler tick: admit into free slots, reap deadline
-        overruns, run one decode step."""
-        self._admit()
-        self._reap_deadlines()
-        self._decode_step()
+        """One scheduler tick: admit into free slots, commit a due epoch
+        checkpoint, reap deadline overruns, run one decode step.  A
+        kill-class fault wipes volatile state and resumes from the last
+        commit."""
+        from repro_torch.resilience.faults import DeviceDrop, PowerLoss
+
+        try:
+            self._admit()
+            self._maybe_commit()
+            self._reap_deadlines()
+            self._decode_step()
+        except (PowerLoss, DeviceDrop):
+            self.stats["power_losses"] += 1
+            self._reboot()
 
     def drain(self) -> list[Result]:
         """Run the scheduler to idle; returns accumulated results by rid."""
@@ -679,6 +767,96 @@ class ContinuousLMEngine(_SubmitRetryMixin):
                 except QueueFull:
                     self.pump()
         return self.drain()
+
+
+    # -- epoch checkpoints ---------------------------------------------------
+
+    def _poll(self, site: str) -> None:
+        if self.faults is not None:
+            ev = self.faults.poll(site, dt=1.0)
+            if ev is not None:
+                self.faults.raise_for(ev)
+
+    def _maybe_commit(self) -> None:
+        if self.ckpt is None:
+            return
+        if (self._last_commit is not None
+                and self._step - self._last_commit < self.epoch_steps):
+            return
+        extra = dict(
+            step=self._step, next_rid=self._next_rid,
+            plan_fp=str(self._plan_fp), table=self._table.tolist(),
+            pool=self.pool.snapshot(),
+            slots=[None if s is None else dict(
+                rid=s.rid, t_submit=s.t_submit, t_start=s.t_start,
+                tokens=[int(t) for t in s.tokens], new_tokens=s.new_tokens,
+                pages=[int(p) for p in s.pages], pos=s.pos,
+                emitted=list(s.emitted), last_tok=s.last_tok,
+                margins=list(s.margins))
+                for s in self._slots],
+            waiting=[dict(rid=p.rid, tokens=[int(t) for t in p.tokens],
+                          new_tokens=p.new_tokens, t_submit=p.t_submit)
+                     for p in self._waiting],
+            results={str(r.rid): dict(
+                value=[int(v) for v in r.value], t_submit=r.t_submit,
+                t_done=r.t_done, t_start=r.t_start,
+                margins=(None if r.margins is None
+                         else [float(m) for m in r.margins]))
+                for r in self._results.values()},
+            dead=list(self.dead_letters),
+        )
+        t0 = time.perf_counter()
+        self.ckpt.save(self._step, self._pools, extra=extra, tag="cbe")
+        self.stats["commit_s"] += time.perf_counter() - t0
+        self.stats["commit_bytes"] += self.ckpt.last_bytes
+        self._last_commit = self._step
+        self.stats["commits"] += 1
+
+    def _try_restore(self) -> bool:
+        """Adopt the last committed state, its pools onto this engine's
+        device (the cold pools are the template: dtypes only)."""
+        step = self.ckpt.latest_step(tag="cbe")
+        if step is None:
+            return False
+        extra = self.ckpt.manifest(step, tag="cbe")["extra"]
+        if extra.get("plan_fp") != str(self._plan_fp):
+            return False  # a foreign checkpoint: not this plan's KV
+        _, self._pools = self.ckpt.restore(self._pools, step=step, tag="cbe",
+                                           device=self.device)
+        self._table = np.asarray(extra["table"], np.int32)
+        self.pool.restore(extra["pool"])
+        self._slots = [
+            None if d is None else _Slot(
+                d["rid"], d["t_submit"], d["t_start"],
+                np.asarray(d["tokens"], np.int32), d["new_tokens"],
+                list(d["pages"]), d["pos"], list(d["emitted"]),
+                d["last_tok"], list(d["margins"]))
+            for d in extra["slots"]]
+        self._waiting = deque(
+            _Pending(d["rid"], np.asarray(d["tokens"], np.int32),
+                     d["new_tokens"], d["t_submit"])
+            for d in extra["waiting"])
+        self._results = {
+            int(rid): Result(
+                int(rid), np.asarray(d["value"], np.int32), d["t_submit"],
+                d["t_done"], 1, 1, t_start=d["t_start"],
+                margins=(None if d["margins"] is None
+                         else np.asarray(d["margins"])))
+            for rid, d in extra["results"].items()}
+        self.dead_letters = list(extra["dead"])
+        self._step = int(extra["step"])
+        self._next_rid = int(extra["next_rid"])
+        self._last_commit = self._step
+        return True
+
+    def _reboot(self) -> None:
+        """Power came back: everything volatile (device pools, host
+        schedule) is gone.  Start cold, then resume from the last commit
+        if there is one; requests admitted or submitted after it are lost,
+        as in a real brownout."""
+        self._cold_start()
+        if self.ckpt is not None:
+            self._try_restore()
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ CPU.  Decode is a Python loop over tokens (the reference's one-trace
 ``lax.scan``): each step runs the model once on the cache, which it
 updates in place.  ``--throughput`` drives the bucket engine
 (``launch/engine.ServeEngine`` + ``LMRunner``), ``--continuous`` the
-paged continuous-batching engine (``ContinuousLMEngine``).
+paged continuous-batching engine (``ContinuousLMEngine``), and
+``--chaos-mtbf STEPS`` the resilient engine (``repro_torch.resilience``)
+under a seeded fault schedule with K-step decode epoch checkpoints
+(``--epoch-steps``, ``--checkpoint-dir``), checked against a fault-free
+run of the same engine.
 """
 from __future__ import annotations
 
@@ -217,6 +221,52 @@ def run_continuous(params, cfg, qmode: str, args) -> None:
     print(f"programs={sorted(cont.program_shapes)} pool={cont.pool.stats()}")
 
 
+def run_chaos(params, cfg, qmode: str, args) -> None:
+    """``--chaos-mtbf``: the resilient engine under a seeded exponential
+    fault schedule with decode epoch checkpoints; every completed request
+    is held against a fault-free run of the same engine configuration."""
+    import tempfile
+
+    from repro_torch.resilience import (EpochLMRunner, FaultPlan,
+                                        ResilientServeEngine)
+
+    prompts = _prompts(args.requests, args.prompt_len, cfg.vocab)
+
+    def mk(ckdir, faults=None):
+        runner = EpochLMRunner(params, cfg, new_tokens=args.new_tokens,
+                               epoch_steps=args.epoch_steps, qmode=qmode)
+        return ResilientServeEngine(
+            runner, fault_plan=faults, checkpoint_dir=ckdir,
+            max_batch=args.batch,
+            flush_deadline_s=args.flush_deadline_ms / 1e3, max_retries=1000)
+
+    ref = [r.value for r in mk(None).serve(list(prompts))]
+    with tempfile.TemporaryDirectory(prefix="chaos_ckpt_") as tmp:
+        eng = mk(args.checkpoint_dir or tmp,
+                 FaultPlan(args.chaos_mtbf, seed=args.chaos_seed))
+        t0 = time.perf_counter()
+        res = eng.serve(list(prompts))
+        wall = time.perf_counter() - t0
+    identical = len(res) == len(ref) and all(
+        np.array_equal(r.value, v) for r, v in zip(res, ref))
+    s = eng.stats
+    print(f"arch={cfg.name} device={args.device} chaos: "
+          f"mtbf={args.chaos_mtbf} steps (seed {args.chaos_seed}), "
+          f"K={args.epoch_steps}, requests={len(prompts)}")
+    print(f"completed {len(res)}/{len(prompts)} in {wall:.2f}s, "
+          f"bit-identical to fault-free: {identical}")
+    print(f"faults={s['faults']} (power={s['power_losses']} "
+          f"drop={s['device_drops']} slow={s['slow_dispatches']} "
+          f"staging={s['staging_retries']}) retries={s['retries']} "
+          f"dead={s['dead_lettered']}")
+    print(f"prefills={s['prefills']} resumes={s['resumes']} "
+          f"epochs={s['epochs']} commits={s['commits']} "
+          f"commit_s={s['commit_s']:.4f} "
+          f"executed_steps={s['executed_steps']} "
+          f"useful_steps={s['useful_steps']} "
+          f"wasted_steps={s['wasted_steps']:.2f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
@@ -240,12 +290,24 @@ def main(argv=None):
     ap.add_argument("--pages", type=int, default=64)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--flush-deadline-ms", type=float, default=2.0)
-    ap.add_argument("--chaos-mtbf", type=float, default=None, metavar="STEPS")
+    ap.add_argument("--chaos-mtbf", type=float, default=None, metavar="STEPS",
+                    help="fault-injected serving: mean decode steps between "
+                         "faults (exponential schedule); runs the resilient "
+                         "engine and holds it against a fault-free run")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="--chaos-mtbf: fault schedule seed")
+    ap.add_argument("--epoch-steps", type=int, default=4,
+                    help="--chaos-mtbf: decode checkpoint period K (the "
+                         "paper's NV write period P, in decode steps)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="--chaos-mtbf: decode epoch checkpoint directory "
+                         "(default: a temporary directory)")
     args = ap.parse_args(argv)
-    for flag in ("plan_cache", "autotune", "chaos_mtbf"):
+    for flag in ("plan_cache", "autotune"):
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not yet ported")
+                f"--{flag.replace('_', '-')} is not yet ported (it needs LM "
+                "plans)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -264,6 +326,8 @@ def main(argv=None):
     from repro_torch.models.layers import prequantize_params
 
     params = prequantize_params(T.init_lm(gen, cfg, SINGLE, device), cfg)
+    if args.chaos_mtbf is not None:
+        return run_chaos(params, cfg, qmode, args)
     if args.continuous:
         return run_continuous(params, cfg, qmode, args)
     if args.throughput:
