@@ -92,6 +92,23 @@ Phases, each of which makes the script exit nonzero when it fails:
    ``ContinuousLMEngine`` with ``checkpoint_dir`` and a scripted power
    loss: every result equals the fault-free run's, ``attn_paged``
    launches;
+5c. execution plans, one ``PLAN`` line: ``compile(target="cuda",
+   autotune=True)`` for svhn (40x40, W1A1/W1A4/W1A8, batch hints 1 and 8)
+   and AlexNet (224x224, W1A1/W1A8, batch hint 8) times every layer's
+   candidate engines on the card as served (each layer's microseconds,
+   verdict and ``engine_source`` printed); each autotuned plan's logits
+   (AlexNet: fc5's output) equal the heuristic plan's bit for bit; each
+   plan is saved, the autotune state cleared and the plan reloaded with
+   zero calls to ``_time_engine`` and equal engines; a 4 s serving window
+   of the autotuned svhn W1A1 plan beside the heuristic one (a report,
+   not a gate); the SmolLM-360M W1A8 LM plan (seed 2, bf16) through
+   ``api.build(cfg, params=...).compile(prompt_len=2048, batch_hints=(2,),
+   page_size=16, kv_pages=...)``: the dense table's four (K, N) keys,
+   ``flash`` at the prefill and ``paged`` at the decode geometry, its
+   served tokens held to the plan-free bucket run of phase 5 before and
+   after a save and ``api.load``, 32 ``attn_flash`` launches per bucket
+   prefill, and ``compile_lm(autotune=True)``'s ``f32dot``/``int8`` times
+   at the four shapes; every CNN kernel and ``attn_flash`` launch;
 6. one JSON line listing the kernels, then the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
@@ -279,6 +296,18 @@ RES_LM_KILL = ("decode", 2, "power_loss")
 # the continuous engine under a power loss: slots, pages, requests
 RES_CONT_SLOTS, RES_CONT_PAGES, RES_CONT_REQUESTS = 4, 64, 6
 RES_CONT_EPOCH, RES_CONT_KILL = 4, ("decode", 6, "power_loss")
+
+# the plan phase: CNN autotune per model, batch hints and bit widths (svhn
+# at 40x40, AlexNet at 224x224), and the LM plan's paged geometry: the
+# page-table width of lm_main_path's continuous run
+PLAN_SVHN_QUANTS, PLAN_ALEX_QUANTS = ("w1a1", "w1a4", "w1a8"), ("w1a1",
+                                                                 "w1a8")
+PLAN_SVHN_HINTS, PLAN_ALEX_HINTS = (1, 8), (8,)
+PLAN_KV_PAGES = -(-(CONT_PROMPTS[1] + CONT_HORIZONS[1]) // CONT_PAGE)
+# the kernels the plan phase must launch: every CNN kernel (each autotune
+# candidate is timed as served) and the LM plan's flash prefill
+PLAN_KERNELS = ("fused_qgemm", "conv_implicit", "quantize_pack",
+                "bitgemm_packed", "int8_matmul", "attn_flash")
 
 # a fresh interpreter's compile or load of the resilience phase's svhn W1A8
 # plan (argv: "compile" | "load", the plan's base path): what a node back
@@ -1424,6 +1453,10 @@ def lm_main_path(card: str) -> dict:
         bucket_vs_plain=len(bucket_vs_plain["divergences"]),
         continuous_vs_plain=len(cont_vs_plain["divergences"]),
         continuous_vs_alone=len(cont_vs_alone["divergences"]))), flush=True)
+    # the plan-free bucket run, for the plan phase to hold its tokens to
+    report["bucket_run"] = dict(prompts=prompts, tokens=b_tok,
+                                margins=torch.stack(margins,
+                                                    dim=1).cpu().numpy())
     return report
 
 
@@ -1664,6 +1697,258 @@ def resilience_phase(card: str) -> dict:
     return report
 
 
+class _CountCalls:
+    """Wrap a function and count its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+
+def _autotune_rows(plan) -> list:
+    """One row per (quantized layer, batch hint): every candidate's
+    microseconds, the verdict and where it came from."""
+    from repro_torch.kernels import ops
+
+    rows = []
+    for lp in plan.layers:
+        if lp.fp:
+            continue
+        for b, eng in lp.engines:
+            key = ops.autotune_key(
+                b * lp.out_h * lp.out_w, lp.k, lp.cout, lp.a_bits, lp.w_bits,
+                "cuda", ops.ConvShape(lp.in_h, lp.in_w, lp.kh, lp.kw,
+                                      lp.stride, lp.padding, batch=b))
+            verdict, us = plan.autotune.get(key, (eng, {}))
+            check(verdict == eng, f"{lp.name} batch {b}: plan engine {eng} "
+                                  f"!= measured verdict {verdict}")
+            rows.append(dict(layer=lp.name, batch=b, k=lp.k, n=lp.cout,
+                             candidates_us=us, verdict=eng,
+                             engine_source=lp.engine_source))
+    return rows
+
+
+def _cnn_autotune(tag, spec, q, params, img, hints, x, work, counter,
+                  head=None) -> tuple:
+    """Compile ``spec`` at ``q`` with and without autotune on the card;
+    hold the autotuned plan's output to the heuristic plan's bit for bit
+    (the logits, and with ``head`` the first ``head`` layers' output);
+    save it, clear the autotune state and reload it, counting the
+    measurements of each step.  Returns (report, autotuned, heuristic)."""
+    from repro_torch import api
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import ops
+
+    ops.clear_plan_state()
+    model = api.build(spec, q, params=params, img_hw=img, name=tag)
+    c0 = counter.calls
+    tuned, tuned_ms = _sync_ms(lambda: model.compile(
+        target="cuda", batch_hints=hints, autotune=True))
+    measured = counter.calls - c0
+    heur, heur_ms = _sync_ms(lambda: model.compile(target="cuda",
+                                                   batch_hints=hints))
+    check(tuned.plan.autotune and all(k[-1] == "cuda"
+                                      for k in tuned.plan.autotune),
+          f"{tag} {q.tag()}: autotune keys {list(tuned.plan.autotune)}")
+    got, want = tuned.forward(x), heur.forward(x)
+    check(torch.equal(got, want), f"{tag} {q.tag()}: autotuned logits "
+                                  "differ from the heuristic plan's")
+    out = dict(compile_ms_autotune=tuned_ms, compile_ms_heuristic=heur_ms,
+               autotune_added_ms=tuned_ms - heur_ms,
+               time_engine_calls=measured, logits_bit_identical=True,
+               layers=_autotune_rows(tuned.plan))
+    if head is not None:
+        fa = P.execute_cnn_layers(P.layers_for_batch(tuned.plan, 8)[:head],
+                                  tuned.params[:head], x, q)
+        fb = P.execute_cnn_layers(P.layers_for_batch(heur.plan, 8)[:head],
+                                  heur.params[:head], x, q)
+        check(torch.equal(fa, fb), f"{tag} {q.tag()}: fc5 output differs "
+                                   "from the heuristic plan's")
+        out["fc5_bit_identical"] = True
+    path = tuned.save(os.path.join(work, f"{tag}_{q.tag()}"))
+    ops.clear_plan_state()
+    c0 = counter.calls
+    back, load_ms = _sync_ms(lambda: api.load(path, quant=q, model=tag,
+                                              backend="cuda", device="cuda"))
+    check(counter.calls == c0, f"{tag} {q.tag()}: the reload measured "
+                               f"{counter.calls - c0} times")
+    check([lp.engines for lp in back.plan.layers]
+          == [lp.engines for lp in tuned.plan.layers],
+          f"{tag} {q.tag()}: reloaded engines differ")
+    check(torch.equal(back.forward(x), want),
+          f"{tag} {q.tag()}: reloaded logits differ")
+    out.update(reload_ms=load_ms, reload_time_engine_calls=0,
+               reload_engines_equal=True)
+    return out, tuned, heur
+
+
+def plan_phase(card: str, lm: dict) -> dict:
+    """Execution plans on the card: CNN autotune at full width (svhn
+    W1A1/W1A4/W1A8, AlexNet W1A1/W1A8), each autotuned plan held to the
+    heuristic one and reloaded without a measurement, a serving window of
+    the autotuned svhn W1A1 plan beside the heuristic one, and the
+    SmolLM-360M W1A8 LM plan through build -> compile -> serve, save and
+    load, its tokens held to ``lm_main_path``'s plan-free run, with the
+    signed engines autotuned at its four GEMM shapes."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core import plan as P
+    from repro_torch.core.quant import PAPER_CONFIGS, W1A8
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import alexnet_spec, init_cnn, svhn_cnn_spec
+
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "plan_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counter = _CountCalls(ops._time_engine)
+    ops._time_engine = counter
+    report = dict(card=card, cnn={})
+    t_phase = time.perf_counter()
+    _lib.reset_launches()
+    try:
+        rs = np.random.RandomState(1)
+        images = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+                  for _ in range(16)]
+        x_alex = torch.from_numpy(
+            rs.uniform(0, 1, (8, 224, 224, 3)).astype(np.float32)).to(dev)
+        x_svhn = torch.from_numpy(np.stack(images[:8])).to(dev)
+        spec = svhn_cnn_spec()
+        svhn_params = init_cnn(torch.Generator(device=dev).manual_seed(0),
+                               spec)
+        w1a1 = {}
+        for qn in PLAN_SVHN_QUANTS:
+            out, tuned, heur = _cnn_autotune(
+                "svhn", spec, PAPER_CONFIGS[qn], svhn_params, 40,
+                PLAN_SVHN_HINTS, x_svhn, work, counter)
+            one = torch.from_numpy(images[8][None]).to(dev)
+            check(torch.equal(tuned.forward(one), heur.forward(one)),
+                  f"svhn {qn}: batch-1 logits differ")
+            report["cnn"][f"svhn {qn}"] = out
+            if qn == "w1a1":
+                w1a1 = dict(autotuned=tuned, heuristic=heur)
+        alex_params = init_cnn(torch.Generator(device=dev).manual_seed(1),
+                               alexnet_spec())
+        for qn in PLAN_ALEX_QUANTS:
+            out, _, _ = _cnn_autotune(
+                "alexnet", alexnet_spec(), PAPER_CONFIGS[qn], alex_params,
+                224, PLAN_ALEX_HINTS, x_alex, work, counter, head=6)
+            report["cnn"][f"alexnet {qn}"] = out
+        del alex_params, x_alex
+        # the faithful question end to end: one serving window each (a
+        # report, not a gate)
+        windows = {}
+        for name, c in w1a1.items():
+            dep = c.serve(max_batch=8)
+            dep.predict(images[:8])                   # warm-up
+            windows[name], vals = serve_window(dep.engine, images)
+            check(all(np.isfinite(v).all() for v in vals),
+                  f"svhn w1a1 {name} window: non-finite logits")
+            windows[name]["engines"] = {
+                lp.name: lp.engine_at(8) for lp in c.plan.layers}
+        windows["autotuned_over_heuristic_requests_per_s"] = (
+            windows["autotuned"]["requests_per_s"]
+            / windows["heuristic"]["requests_per_s"])
+        report["svhn_w1a1_window"] = windows
+        del w1a1
+        report["cnn_s"] = time.perf_counter() - t_phase
+
+        # ---- the LM plan at full width
+        t_lm = time.perf_counter()
+        cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(2), cfg,
+                           SINGLE)
+        ops.clear_plan_state()
+        compiled, compile_ms = _sync_ms(lambda: api.build(
+            cfg, params=params).compile(
+            target="cuda", prompt_len=LM_PROMPT, batch_hints=(LM_BATCH,),
+            page_size=CONT_PAGE, kv_pages=PLAN_KV_PAGES))
+        del params
+        plan = compiled.plan
+        kn = sorted({k[1:3] for k in plan.dense_table})
+        check(kn == sorted(LM_INT8_GEMMS),
+              f"LM dense table (K, N) keys {kn} != {sorted(LM_INT8_GEMMS)}")
+        flash_key = ops.attn_plan_key(ops.AttnShape(
+            seq_q=LM_PROMPT, seq_kv=LM_PROMPT, heads=cfg.n_heads,
+            head_dim=cfg.hd, quantized=True), "cuda")
+        paged_key = ops.attn_plan_key(ops.AttnShape(
+            seq_q=1, seq_kv=CONT_PAGE * PLAN_KV_PAGES, heads=cfg.n_heads,
+            head_dim=cfg.hd, quantized=True, page_size=CONT_PAGE), "cuda")
+        check(plan.attn_table == {flash_key: "flash", paged_key: "paged"},
+              f"LM attention table {plan.attn_table}")
+        hold = lm["bucket_run"]
+
+        def serve_plan(c, tag):
+            before = dict(_lib.LAUNCHES)
+            dep = c.serve(new_tokens=LM_NEW, max_batch=LM_BATCH)
+            d0 = dep.stats["dispatches"]
+            toks, ms = _sync_ms(lambda: np.stack(dep.predict(
+                hold["prompts"])))
+            disp = dep.stats["dispatches"] - d0
+            got = {k: _lib.LAUNCHES[k] - before.get(k, 0)
+                   for k in _lib.LAUNCHES}
+            check(disp == 1, f"LM plan {tag}: {disp} dispatches")
+            check(got.get("attn_flash", 0) == cfg.n_layers,
+                  f"LM plan {tag}: {got.get('attn_flash', 0)} attn_flash "
+                  f"launches for one bucket prefill, want {cfg.n_layers}")
+            check(got.get("attn_paged", 0) == 0,
+                  f"LM plan {tag}: attn_paged launched")
+            return dict(wall_ms=ms, attn_flash_per_prefill=got["attn_flash"],
+                        vs_plan_free=_hold_tokens(
+                            f"LM plan {tag} vs plan-free", toks,
+                            hold["tokens"], hold["margins"]))
+
+        served = serve_plan(compiled, "compiled")
+        path = compiled.save(os.path.join(work, "smollm_w1a8"))
+        loaded, load_ms = _sync_ms(lambda: api.load(path, spec=cfg,
+                                                    device="cuda"))
+        check(loaded.fingerprint() == compiled.fingerprint(),
+              "LM plan: reloaded fingerprint differs")
+        reloaded = serve_plan(loaded, "reloaded")
+        # the signed engines timed at the four GEMM shapes
+        ops.clear_plan_state()
+        c0 = counter.calls
+        tuned, tune_ms = _sync_ms(lambda: P.compile_lm(
+            plan.params, cfg, prompt_len=LM_PROMPT, batch_hints=(LM_BATCH,),
+            autotune=True))
+        autotune = {f"{k[2]}x{k[3]}": dict(m=k[1], us=v[1], verdict=v[0])
+                    for k, v in sorted(tuned.autotune.items())}
+        check(len(autotune) == len(LM_INT8_GEMMS)
+              and all(set(r["us"]) == {"f32dot", "int8"}
+                      for r in autotune.values()),
+              f"LM autotune {autotune}")
+        report["lm"] = dict(
+            model=cfg.name, quant=cfg.quant.tag(), compile_ms=compile_ms,
+            load_ms=load_ms, fingerprint=compiled.fingerprint(),
+            dense_table={f"{k[1]}x{k[2]}": v
+                         for k, v in sorted(plan.dense_table.items())},
+            attn_table={json.dumps(list(k)): v
+                        for k, v in plan.attn_table.items()},
+            served=served, reloaded=reloaded, autotune_ms=tune_ms,
+            autotune_time_engine_calls=counter.calls - c0,
+            autotune=autotune, kv_pages=PLAN_KV_PAGES, page_size=CONT_PAGE)
+        del compiled, loaded, tuned, plan
+        report["lm_s"] = time.perf_counter() - t_lm
+    finally:
+        ops._time_engine = counter.fn
+        ops.clear_plan_state()
+    launches = dict(_lib.LAUNCHES)
+    for k in PLAN_KERNELS:
+        check(launches.get(k, 0) > 0, f"plan phase: {k} never launched")
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print("PLAN", json.dumps(report), flush=True)
+    return report
+
+
 def lm_profiles(params, cfg, layers, cont_engine) -> dict:
     """One decode step of each LM engine under the profiler: the bucket
     engine's (batch LM_BATCH at position LM_PROMPT, attention over the
@@ -1877,6 +2162,9 @@ def main() -> int:
     t0 = time.perf_counter()
     resilience_phase(card)
     print(f"RESILIENCE PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    plan_phase(card, lm)
+    print(f"PLAN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernels_line(summary, launches)))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)

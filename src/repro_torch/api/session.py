@@ -1,9 +1,10 @@
 """Session facade: build -> compile -> forward / serve / simulate / save
-(port of the CNN half of ``repro/api/session.py``).
+(port of ``repro/api/session.py``).
 
     model    = build(spec, quant, params=params)          # ConvSpec list
     compiled = model.compile(target="cuda", batch_hints=(1, 8),
-                             cache="plans/svhn")          # reload or save
+                             cache="plans/svhn",          # reload or save
+                             autotune=True)               # measure engines
     compiled.forward(x)                                   # one batch
     compiled.serve(max_batch=8).predict(images)           # request engine
     compiled.serve(resilience=ResilienceConfig(...),      # fault-surviving
@@ -11,9 +12,13 @@
     compiled.simulate(target="sot_mram")                  # PIM cost report
     compiled.save("plans/svhn"); load("plans/svhn", device="cuda")
 
+    lm = build(cfg, params=lm_params).compile(prompt_len=2048,
+                                              batch_hints=(2,))  # ArchConfig
+    lm.serve(new_tokens=16).predict(prompts)              # LMRunner
+
 ``simulate`` is pure arithmetic over the plan's geometry and gives the
-reference's floats exactly.  Not ported yet: LM sessions (``build(cfg)``),
-``compile(autotune=True)`` and ``compile(verify=True)``.
+reference's floats exactly.  Not ported yet: ``compile(verify=True)`` (the
+static prover).
 """
 from __future__ import annotations
 
@@ -91,7 +96,8 @@ class Deployment:
 
 @dataclasses.dataclass
 class Model:
-    """An uncompiled CNN: spec + quantization + (optional) params."""
+    """An uncompiled model: a ConvSpec list (CNN) or an ArchConfig (LM),
+    its quantization and (optional) params."""
 
     spec: Any
     quant: QuantConfig
@@ -101,27 +107,26 @@ class Model:
 
     @property
     def kind(self) -> str:
-        """The model family: "cnn" (LM sessions are not yet ported)."""
-        return "cnn"
+        """The model family: "lm" for an ArchConfig, else "cnn"."""
+        return "lm" if _is_lm(self.spec) else "cnn"
 
     def compile(self, *, target: str = "cuda", batch_hints=(1,),
                 cache: str | None = None, autotune: bool = False,
-                verify: bool = False) -> "CompiledModel":
+                verify: bool = False, prompt_len: int = 16,
+                page_size: int | None = None,
+                kv_pages: int | None = None) -> "CompiledModel":
         """Compile against a compute target (``cuda``).  Params are
-        pre-quantized on the device they live on.
+        pre-quantized on the device they live on; ``autotune=True`` times
+        the candidate engines there.  LM models take ``prompt_len`` and
+        the paged geometry (``page_size``, ``kv_pages``).
 
         ``cache`` names a plan file: if it exists it is reloaded (guarded
         by :func:`repro_torch.core.plan.check_plan_matches`; nothing is
-        requantized) onto the params' device (``cuda`` for a
+        requantized or measured) onto the params' device (``cuda`` for a
         structure-only model), otherwise the fresh plan is saved there."""
         from repro_torch.core import plan as P
 
-        if autotune:
-            raise NotImplementedError("compile(autotune=True) is not yet "
-                                      "ported (it comes with LM planning)")
-        if verify:
-            raise NotImplementedError("compile(verify=True): the static plan "
-                                      "prover is not yet ported")
+        P._check_verify(verify)
         t = get_target(target)
         if t.kind != "compute":
             raise P.PlanError(
@@ -130,19 +135,23 @@ class Model:
                 "to .simulate() instead")
         t0 = time.perf_counter()
         if cache and P.plan_exists(cache):
-            from repro_torch.launch.engine import _params_device
-
-            dev = ("cuda" if self.params is None
-                   else _params_device(self.params))
             plan = P.check_plan_matches(
-                P.load_plan(cache, device=dev), quant=self.quant,
-                model=self.name, backend=t.name)
+                P.load_plan(cache, device=P._tree_device(self.params,
+                                                         "cuda")),
+                quant=self.quant, model=self.name, backend=t.name)
             return CompiledModel(plan, model=self, cache_path=cache,
                                  reloaded=True,
                                  compile_s=time.perf_counter() - t0)
-        plan = P.compile_model(self.params, self.spec, self.quant,
-                               target=t.name, batch_hints=batch_hints,
-                               img_hw=self.img_hw, model=self.name)
+        if self.kind == "lm":
+            plan = P.compile_lm(self.params, self.spec, target=t.name,
+                                batch_hints=batch_hints,
+                                prompt_len=prompt_len, autotune=autotune,
+                                page_size=page_size, kv_pages=kv_pages)
+        else:
+            plan = P.compile_model(self.params, self.spec, self.quant,
+                                   target=t.name, batch_hints=batch_hints,
+                                   img_hw=self.img_hw, autotune=autotune,
+                                   model=self.name)
         path = P.save_plan(plan, cache) if cache else None
         return CompiledModel(plan, model=self, cache_path=path,
                              reloaded=False,
@@ -176,31 +185,61 @@ class CompiledModel:
         versions (the on-device oracle)."""
         from repro_torch.core import plan as P
 
+        if self.plan.kind != "cnn":
+            raise P.PlanError("forward() executes CNN plans; use serve() "
+                              "for LM generation")
         return P.plan_forward(self.plan, x, reference=reference)
 
     def serve(self, *, max_batch: int = 8, flush_deadline_s: float = 0.005,
-              max_pending: int = 4096, resilience=None,
+              max_pending: int = 4096, new_tokens: int = 16,
+              qmode: str = "serve", resilience=None,
               fallback: "CompiledModel | None" = None) -> Deployment:
-        """Stand up the request-level serving engine on this plan.
+        """Stand up the request-level serving engine on this plan (an LM
+        plan generates ``new_tokens`` per request through ``LMRunner``).
 
         ``resilience`` (a :class:`repro_torch.resilience.ResilienceConfig`)
         swaps in the fault-surviving engine; with ``fallback`` (a
         lower-bit CompiledModel of the same network) and a degrade policy
         it falls back to that plan under fault pressure or an energy
         budget."""
-        from repro_torch.launch.engine import CNNRunner, ServeEngine
+        from repro_torch.launch.engine import ServeEngine
 
+        kw = dict(max_batch=max_batch, flush_deadline_s=flush_deadline_s,
+                  max_pending=max_pending)
         if resilience is not None:
             from repro_torch.resilience import build_resilient_engine
 
             engine = build_resilient_engine(
-                self, resilience, fallback=fallback, max_batch=max_batch,
-                flush_deadline_s=flush_deadline_s, max_pending=max_pending)
-            return Deployment(engine, self)
-        engine = ServeEngine(CNNRunner(self.plan), max_batch=max_batch,
-                             flush_deadline_s=flush_deadline_s,
-                             max_pending=max_pending)
+                self, resilience, fallback=fallback, new_tokens=new_tokens,
+                qmode=qmode, **kw)
+        else:
+            engine = ServeEngine(self.runner(new_tokens=new_tokens,
+                                             qmode=qmode), **kw)
         return Deployment(engine, self)
+
+    def runner(self, *, new_tokens: int = 16, qmode: str = "serve",
+               epoch_steps: int | None = None):
+        """The serving runner over this plan: ``CNNRunner`` for a CNN plan,
+        ``LMRunner`` for an LM plan (``EpochLMRunner`` with
+        ``epoch_steps``)."""
+        from repro_torch.core.plan import PlanError
+        from repro_torch.launch.engine import CNNRunner, LMRunner
+
+        if self.plan.kind != "lm":
+            return CNNRunner(self.plan)
+        if self.model is None:
+            raise PlanError(
+                "serving an LM plan needs its ArchConfig (cache geometry, "
+                "vocab) — reload through api.build(cfg, ...).compile("
+                "cache=...) or api.load(path, spec=cfg)")
+        if epoch_steps is None:
+            return LMRunner(None, self.model.spec, new_tokens=new_tokens,
+                            qmode=qmode, model_plan=self.plan)
+        from repro_torch.resilience import EpochLMRunner
+
+        return EpochLMRunner(None, self.model.spec, new_tokens=new_tokens,
+                             epoch_steps=epoch_steps, qmode=qmode,
+                             model_plan=self.plan)
 
     def simulate(self, target: str = "sot_mram") -> CostReport:
         """Price this plan on one of the paper's PIM designs — the
@@ -208,6 +247,9 @@ class CompiledModel:
         from repro_torch.core.plan import PlanError
         from repro_torch.pim.mapper import effective_bits, works_from_layers
 
+        if self.plan.kind != "cnn":
+            raise PlanError("simulate() prices CNN plans (the paper's "
+                            f"scope); this plan is {self.plan.kind!r}")
         t = get_target(target)
         if not isinstance(t, PIMTarget):
             raise PlanError(f"simulate prices the PIM designs; {t.name!r} "
@@ -234,12 +276,18 @@ class CompiledModel:
         return self.cache_path
 
 
-def build(spec, quant: QuantConfig, *, params=None, img_hw=40,
-          name: str | None = None) -> Model:
-    """Open a session on a CNN ``spec`` (ConvSpec list)."""
+def build(spec, quant: QuantConfig | None = None, *, params=None,
+          img_hw=40, name: str | None = None) -> Model:
+    """Open a session: ``spec`` is a ConvSpec list (CNN) or an ArchConfig
+    (LM — its own ``quant`` is used unless overridden)."""
     if _is_lm(spec):
-        raise NotImplementedError("LM sessions (build(cfg)) are not yet "
-                                  "ported: they need LM plans (compile_lm)")
+        q = quant if quant is not None else spec.quant
+        cfg = spec if quant is None else dataclasses.replace(spec, quant=quant)
+        return Model(spec=cfg, quant=q, params=params,
+                     name=name or getattr(cfg, "name", "lm"))
+    if quant is None:
+        raise TypeError("build(spec, quant): CNN specs carry no quant "
+                        "config of their own — pass one explicitly")
     return Model(spec=tuple(spec), quant=quant, params=params, img_hw=img_hw,
                  name=name or "cnn")
 

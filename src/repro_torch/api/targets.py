@@ -6,7 +6,8 @@ Two kinds of target:
   (an H100).  Its ``cost()`` is the reference's roofline formula (compute-
   vs bandwidth-bound cycles, energy per op and per byte) over the H100's
   data-sheet figures: the annotation a compiled plan carries per layer
-  and the currency of the resilience degrade budget.  It routes as the reference's TPU target does — ``implicit``
+  (``attn_cost`` for an LM plan's attention rows) and the currency of the
+  resilience degrade budget.  It routes as the reference's TPU target does — ``implicit``
   for deep-K spatial convs whose block fits shared memory, ``fused``
   otherwise — with the TPU's 8 MiB VMEM residency bound replaced by the
   shared-memory bound of the port's implicit kernel, computed by the same
@@ -16,10 +17,12 @@ Two kinds of target:
   when a ``QuantConfig`` names it (``ops.engine_feasible``), but the
   automatic routing never picks one: the TPU target's crossover to
   ``faithful`` (binary, huge-K, skinny layers) is a TPU constant, and no
-  crossover has been measured on the card.  Attention routes as the TPU
-  target does too (``flash`` for quantized prefill from 2048 tokens,
-  ``paged`` for page-table geometries).  No crossover constant is tuned:
-  none has been measured on the card.
+  crossover has been measured on the card; a compile with
+  ``autotune=True`` measures the candidates there instead.  Attention
+  routes as the TPU target does too (``paged`` for page-table geometries,
+  ``flash`` for quantized prefill from 2048 tokens, ``banded`` for long
+  windowed prefill, ``chunked`` from 8192 tokens).  No crossover constant
+  is tuned: none has been measured on the card.
 * :class:`PIMTarget` — the paper's four accelerators, priced with the
   calibrated device model exactly as the reference prices them.
 """
@@ -40,6 +43,11 @@ class Cost:
     energy_pj: float
     cycles: float
     bytes_moved: float
+
+    def __add__(self, other: "Cost") -> "Cost":
+        return Cost(self.energy_pj + other.energy_pj,
+                    self.cycles + other.cycles,
+                    self.bytes_moved + other.bytes_moved)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,12 +142,26 @@ class ComputeTarget:
                 return "implicit"
         return "fused"
 
+    def attn_cost(self, attn) -> Cost:
+        """The reference's roofline estimate of one attention layer (plan
+        annotation): scores and weighted values, two GEMMs over the
+        effective KV extent (a window bounds it, causal halves it)."""
+        if attn.window:
+            eff_kv = min(attn.window, attn.seq_kv)
+        elif attn.causal and attn.seq_q == attn.seq_kv:
+            eff_kv = max(attn.seq_kv // 2, 1)
+        else:
+            eff_kv = attn.seq_kv
+        qk = self.cost(LayerGeometry(m=attn.batch * attn.heads * attn.seq_q,
+                                     k=attn.head_dim, n=eff_kv), 8, 8)
+        return qk + qk
+
     def select_attn_engine(self, attn) -> str:
         """The reference's attention decision procedure over the TPU
         table's constants: ``paged`` for page-table geometries, ``flash``
-        for quantized prefill of at least ATTN_FLASH_SEQ_MIN tokens, else
-        ``full``.  Geometries the reference sends to ``banded`` or
-        ``chunked`` raise: those engines are not ported."""
+        for quantized prefill of at least ATTN_FLASH_SEQ_MIN tokens,
+        ``banded`` for a window shorter than half the queries, ``chunked``
+        from ATTN_CHUNK_SEQ_MIN tokens, else ``full``."""
         from repro_torch.kernels.attn_flash import flash_levels_exact
 
         if attn.page_size:
@@ -149,11 +171,9 @@ class ComputeTarget:
                 and flash_levels_exact(attn.head_dim, 8, 8)):
             return "flash"
         if attn.window and attn.banded_ok and attn.seq_q > 2 * attn.window:
-            raise NotImplementedError("attention engine 'banded' is not yet "
-                                      "ported")
+            return "banded"
         if seq >= ATTN_CHUNK_SEQ_MIN:
-            raise NotImplementedError("attention engine 'chunked' is not yet "
-                                      "ported")
+            return "chunked"
         return "full"
 
 

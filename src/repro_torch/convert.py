@@ -12,7 +12,7 @@ LM params (``lm_params_from_numpy``) keep the reference's tree: stacked
 per-layer blocks, each prequantized projection ``{"q": (L, K, N) int8
 levels, "s": (L,) float32, "z": (L,) float32}``, the rest float32.
 
-A CNN plan the reference's ``save_plan`` wrote is the port's second
+A CNN or LM plan the reference's ``save_plan`` wrote is the port's second
 source of weights (:func:`plan_from_reference`).
 """
 from __future__ import annotations
@@ -44,8 +44,9 @@ def cnn_params_from_numpy(params, device="cuda") -> list[dict]:
 
 def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     """The reference's LM params (``init_lm``, optionally through
-    ``prequantize_params``), as numpy, -> the port's tree of tensors."""
-    w_max = (1 << cfg.quant.w_bits) - 1
+    ``prequantize_params``), as numpy, -> the port's tree of tensors.
+    ``cfg``: the ArchConfig, or its QuantConfig."""
+    w_max = (1 << getattr(cfg, "quant", cfg).w_bits) - 1
 
     def leaf(k, v):
         a = np.asarray(v)
@@ -63,18 +64,56 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     return walk(params)
 
 
+def _relabel(key: tuple, at: int) -> tuple:
+    return key[:at] + ("cuda",) + key[at + 1:]
+
+
+def _check_lm_tables(path: str, meta: dict) -> tuple[dict, dict]:
+    """A reference LM plan's dense and attention tables, each verdict
+    checked feasible on cuda, the backend slot relabelled ``cuda``."""
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import ops
+
+    dense = {}
+    for k, eng in meta.get("dense_table", []):
+        _, kk, n, a_bits, w_bits, _ = k
+        ok, why = ops.engine_feasible(eng, 1, kk, n, a_bits, w_bits, "cuda")
+        if eng not in P.SIGNED_ENGINES or not ok:
+            raise P.PlanError(f"{path}: dense verdict {eng!r} at K={kk}, "
+                              f"N={n} cannot serve the signed path on cuda"
+                              f"{': ' + why if why else ''} — recompile")
+        dense[_relabel(tuple(k), 5)] = eng
+    attn = {}
+    for k, eng in meta.get("attn_table", []):
+        k = tuple(k)
+        _, sq, heads, hd, causal, window, quantized, _ = k[:8]
+        ps, skv = k[8:] if len(k) == 10 else (None, sq)
+        ok, why = ops.attn_engine_feasible(eng, ops.AttnShape(
+            seq_q=sq, seq_kv=skv, heads=heads, head_dim=hd, causal=causal,
+            window=window or None, quantized=quantized, page_size=ps))
+        if not ok:
+            raise P.PlanError(f"{path}: attention verdict {eng!r} at {k} is "
+                              f"infeasible on cuda: {why} — recompile")
+        attn[_relabel(k, 7)] = eng
+    return dense, attn
+
+
 def plan_from_reference(path: str, device="cuda"):
-    """Read a CNN plan written by the reference's ``save_plan`` as a port
+    """Read a plan written by the reference's ``save_plan`` as a port
     ``ModelPlan`` with its params on ``device``.
 
-    The reference's levels (int8, or int32 at 8 bits) become the port's
-    uint8, checked against each layer's bit width; faithful layers get
-    their weight planes packed (packing is not requantization).  A ``tpu``
-    plan routes as ``cuda`` does, so its engine table is kept, checked
-    feasible on ``cuda``, re-annotated with the ``cuda`` target's costs
-    and relabelled ``backend="cuda"``; its autotune measurements (taken on
-    another backend) are dropped.  A ``cpu`` plan pins the CPU's float
-    engines and is refused."""
+    A ``tpu`` plan routes as ``cuda`` does, so its engine tables are kept,
+    checked feasible on ``cuda`` and relabelled ``backend="cuda"``; its
+    autotune measurements (taken on another backend) are dropped.  A
+    ``cpu`` plan pins the CPU's float engines and is refused.
+
+    CNN plans: the reference's levels (int8, or int32 at 8 bits) become the
+    port's uint8, checked against each layer's bit width; faithful layers
+    get their weight planes packed (packing is not requantization); the
+    layers are re-annotated with the ``cuda`` target's costs.  LM plans:
+    the dense and attention tables' backend slots are relabelled; the
+    rows keep the reference's cost annotations (they depend on the prompt
+    length, which a plan does not store)."""
     import dataclasses
 
     from repro_torch.core import plan as P
@@ -90,6 +129,12 @@ def plan_from_reference(path: str, device="cuda"):
     if backend not in ("tpu", "cuda"):
         raise P.PlanError(f"{path}: unknown plan backend {backend!r}")
     layers = tuple(P._layer_from_json(d) for d in meta["layers"])
+    if meta["kind"] == "lm":
+        dense, attn = _check_lm_tables(path, meta)
+        plan = P._plan_from_meta(meta, params, device, backend="cuda",
+                                 layers=layers)
+        return dataclasses.replace(plan, dense_table=dense, attn_table=attn,
+                                   autotune={})
     for lp in layers:
         if lp.fp:
             continue

@@ -25,9 +25,13 @@ shares; the CUDA kernels compute it with explicitly rounded multiplies
 bit.
 
 The signed (transformer) path, :func:`quant_dense_forward_signed_pre`, has
-no Pallas kernel in the reference: its level GEMM runs on XLA's int8
-engine.  Here it is one library int8 product, ``torch._int_mm`` on centred
-levels (:func:`centred_gemm_int`), exact in int32.
+no Pallas kernel in the reference: its level GEMM runs in XLA on one of
+four engines.  Here ``int8`` is one library int8 product,
+``torch._int_mm`` on centred levels (:func:`centred_gemm_int`), exact in
+int32; ``f32dot`` a float32 product of the centred levels; ``planes`` and
+``packed`` Eq. (1) on the unsigned levels with the reference's 4-term
+correction.  Every term of either form is exact in float32, so the four
+give the same float result bit for bit.
 """
 from __future__ import annotations
 
@@ -231,23 +235,32 @@ def centred_gemm_int(c_lv: torch.Tensor, w_lv: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a8, w_lv)[:m]
 
 
+SIGNED_ENGINES = ("planes", "packed", "int8", "f32dot")
+
+
 def quant_dense_forward_signed_pre(a: torch.Tensor, w_lv: torch.Tensor, s_w,
                                    z_w, a_bits: int, w_bits: int,
-                                   a_scale=None) -> torch.Tensor:
+                                   a_scale=None, engine: str = "int8"
+                                   ) -> torch.Tensor:
     """Signed quantized dense with pre-quantized weights (the LM serve
     GEMM).  ``a`` (..., K) in the compute dtype; ``w_lv`` (K, N) int8
     levels; ``s_w``, ``z_w`` 0-d float32 tensors.
 
     With ``a = s_a (A - z_a)`` and ``w = s_w (W - z_w)`` the reference
-    computes ``s_a s_w [A@W - z_w rowsum(A) - z_a colsum(W) + K z_a z_w]``.
-    Here the product runs on the centred levels ``C = A - z_a`` (int8, so
-    ``C@W`` is one ``torch._int_mm``), where the bracket is
-    ``C@W - z_w rowsum(C)``: the same real number, and every term of both
-    forms is an integer or half-integer far below 2^23, so both are exact
-    in float32 and the results agree bit for bit.
+    computes ``s_a s_w [A@W - z_w rowsum(A) - z_a colsum(W) + K z_a z_w]``
+    (the ``planes`` and ``packed`` engines here, on the unsigned levels).
+    ``int8`` and ``f32dot`` run the product on the centred levels
+    ``C = A - z_a`` (int8, so ``C@W`` is one ``torch._int_mm``, or one
+    float32 product), where the bracket is ``C@W - z_w rowsum(C)``: the
+    same real number, and every term of both forms is an integer or
+    half-integer far below 2^23, so both are exact in float32 and the
+    engines agree bit for bit.
 
     ``a_scale``: None (per-tensor dynamic absmax), ``'row'`` (per-row), or
     a float (a static calibrated scale; the levels then in float32)."""
+    if engine not in SIGNED_ENGINES:
+        raise ValueError(f"signed level engine {engine!r} unknown "
+                         f"(engines: {', '.join(SIGNED_ENGINES)})")
     lead = a.shape[:-1]
     k = a.shape[-1]
     a2 = a.reshape(-1, k)
@@ -258,8 +271,25 @@ def quant_dense_forward_signed_pre(a: torch.Tensor, w_lv: torch.Tensor, s_w,
         a_lv = signed_levels(a2.float(), s_a, a_bits)
     else:
         a_lv, s_a, _ = activation_levels_signed(a2, a_bits)
-    c_lv = a_lv - (1 << (a_bits - 1))
-    acc = centred_gemm_int(c_lv, w_lv).to(torch.float32)
-    rowsum = c_lv.sum(dim=-1, dtype=torch.int32).to(torch.float32)
-    out = (acc - z_w * rowsum[:, None]) * (s_a.float() * s_w)
+    z_a = 1 << (a_bits - 1)
+    if engine in ("planes", "packed"):
+        acc = _ENGINES[engine](a_lv, w_lv.to(torch.int32), a_bits,
+                               w_bits).to(torch.float32)
+        rowsum = a_lv.sum(dim=-1, dtype=torch.int32).to(torch.float32)
+        colsum = w_lv.sum(dim=0, dtype=torch.int32).to(torch.float32)
+        bracket = (acc - z_w * rowsum[:, None] - z_a * colsum[None, :]
+                   + k * z_a * z_w)
+    else:
+        c_lv = a_lv - z_a
+        if engine == "int8":
+            acc = centred_gemm_int(c_lv, w_lv).to(torch.float32)
+        else:
+            if not f32dot_exact(k, a_bits, w_bits):
+                raise ValueError(f"f32dot engine inexact at K={k}, "
+                                 f"a_bits={a_bits}, w_bits={w_bits}")
+            acc = torch.matmul(c_lv.to(torch.float32),
+                               w_lv.to(torch.float32))
+        rowsum = c_lv.sum(dim=-1, dtype=torch.int32).to(torch.float32)
+        bracket = acc - z_w * rowsum[:, None]
+    out = bracket * (s_a.float() * s_w)
     return out.reshape(lead + (w_lv.shape[-1],)).to(a.dtype)

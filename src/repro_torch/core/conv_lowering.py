@@ -66,9 +66,11 @@ def quant_conv2d_pre(x: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     :func:`repro_torch.kernels.ops.quant_conv_serve`)."""
     from repro_torch.kernels import ops  # kernels layer sits above core
 
+    # contiguous levels, as the kernels take their operands (the input a
+    # full-window FC layer gets from resize_linear is strided)
     x_lv = activation_levels(x, a_bits)[0].to(level_dtype(a_bits))
-    return ops.quant_conv_serve(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw,
-                                stride=stride, padding=padding,
+    return ops.quant_conv_serve(x_lv.contiguous(), w_lv, s_w, z_w, kh=kh,
+                                kw=kw, stride=stride, padding=padding,
                                 a_bits=a_bits, w_bits=w_bits, engine=engine,
                                 w_planes=w_planes, reference=reference)
 

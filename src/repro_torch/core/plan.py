@@ -1,22 +1,33 @@
-"""Compile-once execution plans (port of the CNN half of
-``repro/core/plan.py``).
+"""Compile-once execution plans (port of ``repro/core/plan.py``).
 
-:func:`compile_model` resolves every layer's engine at every batch hint,
-annotates each layer with the compile target's roofline cost and
+:func:`compile_model` (CNNs) resolves every layer's engine at every batch
+hint, annotates each layer with the compile target's roofline cost and
 pre-quantizes the weights once; :func:`plan_forward` walks the resulting
 :class:`ModelPlan`.  An explicit ``QuantConfig.engine`` (any of the
 reference's dense engines) pins every quantized layer; the faithful
 engine's weight planes are packed once, at compile or load.
+:func:`compile_lm` (transformers) pre-quantizes every projection and
+resolves one verdict per distinct (K, N) GEMM into the plan's dense table
+and one per attention geometry into its attention table; the serving
+engines consult both while the plan is active (:meth:`ModelPlan.activate`).
+
+Engines resolve three ways, recorded per layer as ``engine_source``:
+``override`` (an explicit ``QuantConfig.engine``, checked feasible at
+compile time), ``autotuned`` (the candidates timed on the device the
+params live on, :func:`repro_torch.kernels.ops.autotune_engine`; the
+measurements travel with the plan) or ``heuristic`` (the target's cost
+model, never another plan's installed verdicts).
 
 :func:`save_plan` / :func:`load_plan` write and read the reference's
 on-disk layout (``<path>.json`` metadata + ``<path>.npz`` levels, the same
 ``PLAN_VERSION``): a restarted node reloads its plan and never
-requantizes.  ``ModelPlan.meta()`` carries the reference's keys, so a
-plan's :meth:`~ModelPlan.fingerprint` hashes the same fields.  Not ported
-yet: the static prover, autotune and the LM compile pass.
+requantizes or measures.  ``ModelPlan.meta()`` carries the reference's
+keys, so a plan's :meth:`~ModelPlan.fingerprint` hashes the same fields.
+Not ported yet: the static prover (``verify=True`` raises).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -25,12 +36,17 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.core import and_accum
 from repro_torch.core.prequant import (is_fp_layer, is_prequantized,
                                        prequantize_cnn_params)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 
 PLAN_VERSION = 1
+
+# engines of the signed (affine-corrected) LM serve path: the fused and
+# faithful epilogues implement the unsigned correction only
+SIGNED_ENGINES = and_accum.SIGNED_ENGINES
 
 
 class PlanError(ValueError):
@@ -45,7 +61,7 @@ class LayerPlan:
 
     index: int
     name: str
-    op: str                 # "conv" (the only op a CNN plan holds)
+    op: str                 # "conv" | "dense" | "attn"
     role: str               # first | mid | last
     fp: bool                # full-precision layer (no bitwise engine)
     kh: int
@@ -62,7 +78,7 @@ class LayerPlan:
     a_bits: int
     w_bits: int
     engine: str             # "fp" for fp layers
-    engine_source: str      # fp | override | heuristic
+    engine_source: str      # fp | override | autotuned | heuristic
     engines: tuple          # ((batch_hint, engine), ...)
     pool: bool = False
     fc: bool = False
@@ -85,18 +101,18 @@ class LayerPlan:
 
 @dataclasses.dataclass
 class ModelPlan:
-    """A compiled, serializable execution plan for one CNN on one compute
-    target (``backend``: the target's name, ``cuda``)."""
+    """A compiled, serializable execution plan for one model on one
+    compute target (``backend``: the target's name, ``cuda``)."""
 
-    kind: str                       # "cnn"
+    kind: str                       # "cnn" | "lm"
     model: str
     backend: str
     quant: QuantConfig
     batch_hints: tuple
     layers: tuple                   # tuple[LayerPlan, ...]
     params: object = None           # pre-quantized serve params (or None)
-    # the reference's LM dispatch tables and autotune measurements: empty
-    # in a CNN plan, kept so meta() has the reference's keys
+    # LM dispatch verdicts (dense_plan_key / attn_plan_key -> engine) and
+    # autotune measurements (autotune_key -> (engine, {engine: us}))
     dense_table: dict = dataclasses.field(default_factory=dict)
     autotune: dict = dataclasses.field(default_factory=dict)
     attn_table: dict = dataclasses.field(default_factory=dict)
@@ -124,9 +140,57 @@ class ModelPlan:
         blob = json.dumps(self.meta(), sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:12]
 
+    def _dispatch_table(self) -> dict:
+        """Every verdict this plan installs (dense GEMMs + attention)."""
+        return {**self.dense_table, **self.attn_table}
+
+    def install(self) -> "ModelPlan":
+        """Install this plan's verdicts process-wide (a server with one
+        plan, installed once at start-up)."""
+        ops.install_plan_table(self._dispatch_table())
+        return self
+
+    @contextlib.contextmanager
+    def activate(self):
+        """Scoped install: dense and attention dispatch consult this plan's
+        tables while the context is open; on exit every key it touched
+        gets its prior verdict back (or none), so an outer install or
+        activation survives."""
+        table = self._dispatch_table()
+        prior = {k: ops._PLAN_TABLE[k] for k in table if k in ops._PLAN_TABLE}
+        ops.install_plan_table(table)
+        try:
+            yield self
+        finally:
+            ops.remove_plan_table({k: None for k in table if k not in prior})
+            if prior:
+                ops.install_plan_table(prior)
+
+
+def _tree_device(tree, default) -> torch.device:
+    """The device of the first tensor in a params tree, else ``default``."""
+    if torch.is_tensor(tree):
+        return tree.device
+    items = (tree.values() if isinstance(tree, dict)
+             else tree if isinstance(tree, (list, tuple)) else ())
+    for v in items:
+        dev = _tree_device(v, None)
+        if dev is not None:
+            return dev
+    return None if default is None else torch.device(default)
+
+
+def _check_verify(verify: bool) -> None:
+    if verify:
+        raise NotImplementedError("verify=True: the static plan prover is "
+                                  "not yet ported")
+
 
 def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
-                    conv, layer_desc: str) -> tuple[str, str]:
+                    conv, *, autotune: bool = False, device=None,
+                    signed: bool = False, act_dtype=torch.float32,
+                    layer_desc: str) -> tuple[str, str]:
+    """One layer's engine verdict -> (engine, source)."""
     if quant.engine not in ("auto", "fp"):
         ok, reason = ops.engine_feasible(quant.engine, m, k, n, quant.a_bits,
                                          quant.w_bits, target, conv)
@@ -135,11 +199,19 @@ def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
                             f"{quant.engine!r} is infeasible on {target!r}: "
                             f"{reason}")
         return quant.engine, "override"
-    return (ops.select_engine(m, k, n, quant.a_bits, quant.w_bits, target,
-                              conv), "heuristic")
+    if autotune:
+        eng, _ = ops.autotune_engine(m, k, n, quant.a_bits, quant.w_bits,
+                                     target, conv, device=device,
+                                     signed=signed, act_dtype=act_dtype)
+        return eng, "autotuned"
+    # the cost model, never select_engine: a compiling plan must not absorb
+    # another plan's installed verdicts or cached measurements
+    return (ops.cost_model_engine(m, k, n, quant.a_bits, quant.w_bits,
+                                  target, conv), "heuristic")
 
 
-def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target):
+def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
+                     autotune: bool = False, device=None):
     """Trace the forward's shape evolution (fc resize, SAME/VALID policy,
     2x2 pools) and resolve one engine per (layer, batch hint)."""
     from repro_torch.core.conv_lowering import _out_hw
@@ -163,7 +235,7 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target):
                                      batch=b)
                 eng, source = _resolve_engine(
                     quant, b * out_h * out_w, kdim, s.cout, target, conv,
-                    layer_desc=f"layer {i} ({name}, {s.k}x{s.k} "
+                    autotune=autotune, device=device, layer_desc=f"layer {i} ({name}, {s.k}x{s.k} "
                                f"cin={s.cin} cout={s.cout} batch={b})")
                 resolved.append((b, eng))
             engines = tuple(resolved)
@@ -210,31 +282,51 @@ def _pack_faithful_weights(params, layers):
 
 
 def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
-                  batch_hints=(1,), img_hw=40,
-                  model: str = "cnn") -> ModelPlan:
+                  batch_hints=(1,), img_hw=40, autotune: bool = False,
+                  model: str = "cnn", verify: bool = False) -> ModelPlan:
     """Compile a CNN serve plan.  ``params`` (float or prequantized, on any
     device) are pre-quantized once on their own device; ``params=None``
     gives a structure-only plan.  An explicit ``quant.engine`` that is
     infeasible on ``target`` raises :class:`PlanError` naming the layer.
     Layers on the faithful engine carry ``w_planes``, their weight levels
-    packed into bit planes once, here."""
+    packed into bit planes once, here.
+
+    ``autotune=True`` times every layer's candidate engines at every batch
+    hint on the params' device (the target's own for a structure-only
+    plan) and keeps the measurements in ``ModelPlan.autotune``."""
     from repro_torch.api.targets import get_target
 
+    _check_verify(verify)
     target = get_target(target).name
     if isinstance(img_hw, int):
         img_hw = (img_hw, img_hw)
     batch_hints = tuple(int(b) for b in batch_hints) or (1,)
+    device = _tree_device(params, target)
     layers = _annotate_costs(
         _plan_cnn_layers(tuple(spec), quant, batches=batch_hints,
-                         img_hw=tuple(img_hw), target=target), target)
+                         img_hw=tuple(img_hw), target=target,
+                         autotune=autotune, device=device), target)
     serve_params = None
     if params is not None:
         serve_params = (params if is_prequantized(params)
                         else prequantize_cnn_params(params, spec, quant))
         serve_params = _pack_faithful_weights(serve_params, layers)
+    tuned = {}
+    if autotune:   # heuristic plans carry no measurements
+        for lp in layers:
+            if lp.fp:
+                continue
+            for b, _ in lp.engines:
+                key = ops.autotune_key(
+                    b * lp.out_h * lp.out_w, lp.k, lp.cout, lp.a_bits,
+                    lp.w_bits, device.type,
+                    ops.ConvShape(lp.in_h, lp.in_w, lp.kh, lp.kw,
+                                  lp.stride, lp.padding, batch=b))
+                if key in ops._AUTOTUNE_CACHE:
+                    tuned[key] = ops._AUTOTUNE_CACHE[key]
     return ModelPlan(kind="cnn", model=model, backend=target, quant=quant,
                      batch_hints=batch_hints, layers=layers,
-                     params=serve_params)
+                     params=serve_params, autotune=tuned)
 
 
 def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
@@ -274,6 +366,8 @@ def layers_for_batch(plan: ModelPlan, batch: int):
 def plan_forward(plan: ModelPlan, x: torch.Tensor, params=None,
                  reference: bool = False) -> torch.Tensor:
     """Execute a compiled CNN plan on ``x`` (on the params' device)."""
+    if plan.kind != "cnn":
+        raise PlanError(f"plan_forward executes CNN plans, got {plan.kind!r}")
     params = plan.params if params is None else params
     if params is None:
         raise PlanError("structure-only plan (compiled with params=None) "
@@ -301,6 +395,154 @@ def plan_cost_on(plan: ModelPlan, target) -> dict:
     report = dict(t.report(works_from_layers(plan.layers)))
     report["target"] = t.name
     return report
+
+
+# ---------------------------------------------------------------------------
+# LM compile pass
+# ---------------------------------------------------------------------------
+
+def _lm_is_prequantized(params) -> bool:
+    return any(isinstance(v, dict) and "q" in v
+               for tree in params["blocks"].values()
+               for sv in tree.values() if isinstance(sv, dict)
+               for v in sv.values())
+
+
+def compile_lm(params, cfg, *, target: str = "cuda", batch_hints=(1,),
+               prompt_len: int = 16, autotune: bool = False,
+               page_size: int | None = None, kv_pages: int | None = None,
+               verify: bool = False) -> ModelPlan:
+    """Compile a transformer serve plan: pre-quantize every projection once
+    (``params``: the port's LM tree, float or already prequantized, on any
+    device) and resolve one verdict per distinct (K, N) GEMM into the
+    dense table, ``m``-free, so one entry covers prefill and every decode
+    step.  Verdicts outside :data:`SIGNED_ENGINES` map to ``int8``, as the
+    signed serve path does.  ``autotune=True`` times the signed candidates
+    at ``batch_hints[0] * prompt_len`` rows on the params' device.
+
+    ``page_size`` / ``kv_pages`` declare the continuous engine's paged
+    geometry (``kv_pages`` = the page-table width): the plan then carries
+    a ``paged`` verdict for its decode step."""
+    from repro_torch.api.targets import LayerGeometry, get_target
+    from repro_torch.models.layers import PREQUANT_KEYS, prequantize_params
+
+    _check_verify(verify)
+    cost_target = get_target(target)
+    target = cost_target.name
+    quant = cfg.quant
+    batch_hints = tuple(int(b) for b in batch_hints) or (1,)
+    quantized = not (quant.engine == "fp" or quant.w_bits >= 32)
+    serve_params = params
+    if quantized and not _lm_is_prequantized(params):
+        serve_params = prequantize_params(params, cfg)
+    device = _tree_device(params, target)
+
+    layers, table = [], {}
+    if quantized:
+        shapes: dict[tuple, str] = {}
+        for kind, tree in sorted(serve_params["blocks"].items()):
+            for sub, sv in sorted(tree.items()):
+                if not isinstance(sv, dict):
+                    continue
+                for kname, v in sorted(sv.items()):
+                    if kname in PREQUANT_KEYS:
+                        shapes.setdefault(
+                            (int(v["q"].shape[-2]), int(v["q"].shape[-1])),
+                            f"{kind}.{sub}.{kname}")
+        m = batch_hints[0] * prompt_len
+        for i, ((K, N), name) in enumerate(sorted(shapes.items())):
+            eng, source = _resolve_engine(
+                quant, m, K, N, target, None, autotune=autotune,
+                device=device, signed=True, act_dtype=cfg.compute_dtype,
+                layer_desc=f"projection {name} (K={K}, N={N})")
+            if eng not in SIGNED_ENGINES:
+                eng = "int8"
+            table[ops.dense_plan_key(K, N, quant.a_bits, quant.w_bits,
+                                     target)] = eng
+            c = cost_target.cost(LayerGeometry(m, K, N), quant.a_bits,
+                                 quant.w_bits)
+            layers.append(LayerPlan(
+                index=i, name=name, op="dense", role="mid", fp=False,
+                kh=0, kw=0, stride=1, padding="", cin=K, cout=N,
+                in_h=0, in_w=0, out_h=0, out_w=0, k=K,
+                a_bits=quant.a_bits, w_bits=quant.w_bits, engine=eng,
+                engine_source=source,
+                engines=tuple((b, eng) for b in batch_hints),
+                cost=(c.energy_pj, c.cycles, c.bytes_moved)))
+    attn_table = _plan_lm_attention(
+        serve_params, cfg, quant, cost_target, batch_hints, prompt_len,
+        layers, page_size=page_size, kv_pages=kv_pages)
+    tuned = {}
+    if autotune:   # heuristic plans carry no measurements
+        tuned = {k: v for k, v in ops._AUTOTUNE_CACHE.items()
+                 if k[0] == "signed" and k[-1] == device.type
+                 and any(k[2:4] == (lp.k, lp.cout) for lp in layers)}
+    return ModelPlan(kind="lm", model=getattr(cfg, "name", "lm"),
+                     backend=target, quant=quant, batch_hints=batch_hints,
+                     layers=tuple(layers), params=serve_params,
+                     dense_table=table, attn_table=attn_table,
+                     autotune=tuned)
+
+
+def _attn_row(index: int, name: str, attn, eng: str, cfg, quant,
+              batch_hints, cost_target) -> LayerPlan:
+    c = cost_target.attn_cost(attn)
+    return LayerPlan(
+        index=index, name=name, op="attn", role="mid", fp=not attn.quantized,
+        kh=0, kw=0, stride=1, padding="", cin=cfg.d_model, cout=cfg.d_model,
+        in_h=0, in_w=0, out_h=0, out_w=0, k=cfg.hd, a_bits=quant.a_bits,
+        w_bits=quant.w_bits, engine=eng, engine_source="heuristic",
+        engines=tuple((b, eng) for b in batch_hints),
+        cost=(c.energy_pj, c.cycles, c.bytes_moved), attn_engine=eng)
+
+
+def _plan_lm_attention(params, cfg, quant: QuantConfig, cost_target,
+                       batch_hints: tuple, prompt_len: int, layers: list,
+                       page_size: int | None = None,
+                       kv_pages: int | None = None) -> dict:
+    """One attention verdict per window geometry (global-attention kinds
+    share one), from the target's own decision procedure, and with
+    ``page_size`` one more for the paged decode step (10-tuple key).
+    Appends an ``op="attn"`` row per verdict to ``layers``; returns the
+    attention table."""
+    from repro_torch.models.layers import attn_quantized
+
+    backend = cost_target.name
+    attn_table: dict = {}
+    seen: set = set()
+    for kind in sorted(params["blocks"]):
+        if kind not in ("attn", "moe", "attn_local"):
+            continue
+        window = cfg.window if kind == "attn_local" else None
+        if window in seen:
+            continue
+        seen.add(window)
+        attn = ops.AttnShape(
+            seq_q=prompt_len, seq_kv=prompt_len, heads=cfg.n_heads,
+            head_dim=cfg.hd, causal=bool(cfg.causal), window=window,
+            batch=batch_hints[0], quantized=attn_quantized(quant, "serve"),
+            banded_ok=bool(getattr(cfg, "banded_attn", False)))
+        eng = cost_target.select_attn_engine(attn)
+        attn_table[ops.attn_plan_key(attn, backend)] = eng
+        layers.append(_attn_row(len(layers), f"attn[{kind}]", attn, eng, cfg,
+                                quant, batch_hints, cost_target))
+    if page_size is not None:
+        if not kv_pages or kv_pages < 1:
+            raise ValueError(f"page_size={page_size} needs kv_pages >= 1 "
+                             f"(per-request page budget), got {kv_pages}")
+        # the continuous engine's decode step: one query token per slot
+        # against kv_pages pages
+        attn = ops.AttnShape(
+            seq_q=1, seq_kv=page_size * kv_pages, heads=cfg.n_heads,
+            head_dim=cfg.hd, causal=bool(cfg.causal), window=None,
+            batch=max(batch_hints), quantized=attn_quantized(quant, "serve"),
+            page_size=page_size)
+        eng = cost_target.select_attn_engine(attn)
+        attn_table[ops.attn_plan_key(attn, backend)] = eng
+        layers.append(_attn_row(len(layers),
+                                f"attn[paged {kv_pages}x{page_size}]", attn,
+                                eng, cfg, quant, batch_hints, cost_target))
+    return attn_table
 
 
 # ---------------------------------------------------------------------------
@@ -437,9 +679,9 @@ def _read_plan(path: str):
     if meta.get("version") != PLAN_VERSION:
         raise PlanError(f"plan version {meta.get('version')!r} != "
                         f"{PLAN_VERSION} (recompile the plan)")
-    if meta.get("kind") != "cnn":
-        raise PlanError(f"{base}.json is a {meta.get('kind')!r} plan; the "
-                        "port loads CNN plans (LM plans are not yet ported)")
+    if meta.get("kind") not in ("cnn", "lm"):
+        raise PlanError(f"{base}.json is a {meta.get('kind')!r} plan "
+                        "(kinds: cnn, lm)")
     params = None
     if meta.get("params_skel") is not None:
         npz_path = os.path.join(os.path.dirname(os.path.abspath(base)),
@@ -451,14 +693,18 @@ def _read_plan(path: str):
 
 def _plan_from_meta(meta: dict, params, device, *, backend=None,
                     layers=None) -> ModelPlan:
+    from repro_torch.convert import lm_params_from_numpy
+
     layers = (tuple(_layer_from_json(d) for d in meta["layers"])
               if layers is None else layers)
+    quant = QuantConfig(**meta["quant"])
     if params is not None:
-        params = _params_to_device(params, layers, device)
+        params = (lm_params_from_numpy(params, quant, device)
+                  if meta["kind"] == "lm"
+                  else _params_to_device(params, layers, device))
     return ModelPlan(
         kind=meta["kind"], model=meta["model"],
-        backend=backend or meta["backend"],
-        quant=QuantConfig(**meta["quant"]),
+        backend=backend or meta["backend"], quant=quant,
         batch_hints=tuple(meta["batch_hints"]), layers=layers,
         params=params,
         dense_table={tuple(k): v for k, v in meta.get("dense_table", [])},
@@ -470,6 +716,12 @@ def _plan_from_meta(meta: dict, params, device, *, backend=None,
 
 def load_plan(path: str, device="cuda") -> ModelPlan:
     """Reload a plan written by :func:`save_plan`, its params on
-    ``device``.  Nothing is requantized."""
+    ``device``.  Nothing is requantized, and the plan's autotune
+    measurements go back into the cache, so even a recompile of the same
+    shapes measures nothing."""
     meta, params = _read_plan(path)
-    return _plan_from_meta(meta, params, device)
+    plan = _plan_from_meta(meta, params, device)
+    if plan.autotune:
+        ops._AUTOTUNE_CACHE.update(plan.autotune)
+        ops._DISPATCH_EPOCH[0] += 1
+    return plan

@@ -18,22 +18,28 @@ same int32 level-GEMM accumulator and then run the one shared epilogue
 :func:`quant_dense_kernel` is the float-in entry point: quantize + pack on
 the card, then the faithful or the MXU path.
 
-An unpinned call takes the compute target's cost model.  Not ported yet:
-the reference's dense and attention plan tables (they serve the LM compile
-pass) and its measured autotune layer.
+An unpinned call resolves in the reference's order (:func:`select_engine`):
+an installed plan's dense table, then the measured autotune cache
+(:func:`autotune_engine`, which times each candidate as it is served, on
+the device the problem's tensors live on), then the compute target's cost
+model (:func:`cost_model_engine`).
 
-Attention engines: ``full`` (plain PyTorch, as the reference computes it
-in XLA), ``flash`` (``csrc/attn_flash.cu``) and ``paged``
-(``csrc/attn_paged.cu``) are ported; ``chunked`` and ``banded`` are not.
+Attention engines: ``full``, ``chunked`` and ``banded`` (plain PyTorch, as
+the reference computes them in XLA), ``flash`` (``csrc/attn_flash.cu``) and
+``paged`` (``csrc/attn_paged.cu``); :func:`select_attn_engine` consults the
+installed plan's attention table before the target's decision procedure.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import bitplane
-from repro_torch.core.and_accum import (_ENGINES, _nibble_split,
+from repro_torch.core.and_accum import (_ENGINES, SIGNED_ENGINES,
+                                        _nibble_split,
                                         dequant_epilogue, epilogue_scales,
                                         f32dot_exact, int32_exact)
 from repro_torch.core.conv_lowering import _out_hw, im2col_sliced
@@ -76,11 +82,88 @@ class ConvShape:
         return self.kh * self.kw * oh * ow / max(self.h * self.w, 1)
 
 
+# ---------------------------------------------------------------------------
+# Plan table + autotune cache: verdicts consulted before the cost model
+# ---------------------------------------------------------------------------
+
+# Dense-GEMM and attention verdicts installed by an active ModelPlan
+# (core/plan.py), keyed by dense_plan_key / attn_plan_key tuples.  Conv
+# verdicts never go through it: a CNN plan pins them per layer.
+_PLAN_TABLE: dict = {}
+
+# Measured verdicts: autotune_key -> (engine, {engine: microseconds}).
+# Filled by autotune_engine, saved with a plan and restored by load_plan,
+# so a reloaded node never measures again.
+_AUTOTUNE_CACHE: dict = {}
+
+# bumped whenever a table or cached verdict changes
+_DISPATCH_EPOCH = [0]
+
+
+def dispatch_epoch() -> int:
+    return _DISPATCH_EPOCH[0]
+
+
+def dense_plan_key(k: int, n: int, a_bits: int, w_bits: int,
+                   backend: str) -> tuple:
+    """Plan-table key of a dense serve GEMM: ``m``-free, so one verdict
+    covers prefill and every decode step."""
+    return ("dense", k, n, a_bits, w_bits, backend)
+
+
+def autotune_key(m: int, k: int, n: int, a_bits: int, w_bits: int,
+                 backend: str, conv: ConvShape | None) -> tuple:
+    """Autotune-cache key.  ``backend`` is the type of the device the
+    measurement ran on (``cuda`` / ``cpu``), so a CPU verdict is never
+    read on the card, nor the reverse."""
+    if conv is not None:
+        return ("conv", conv.h, conv.w, conv.kh, conv.kw, conv.stride,
+                conv.padding, conv.batch, k, n, a_bits, w_bits, backend)
+    return ("dense", m, k, n, a_bits, w_bits, backend)
+
+
+def install_plan_table(entries: dict) -> None:
+    """Install a plan's verdicts (additive)."""
+    _PLAN_TABLE.update(entries)
+    _DISPATCH_EPOCH[0] += 1
+
+
+def remove_plan_table(entries: dict) -> None:
+    for key in entries:
+        _PLAN_TABLE.pop(key, None)
+    _DISPATCH_EPOCH[0] += 1
+
+
+def clear_plan_state() -> None:
+    """Drop every installed plan verdict and autotune measurement."""
+    _PLAN_TABLE.clear()
+    _AUTOTUNE_CACHE.clear()
+    _DISPATCH_EPOCH[0] += 1
+
+
 def select_engine(m: int, k: int, n: int, a_bits: int, w_bits: int,
-                  target: str = "cuda", conv: ConvShape | None = None) -> str:
-    """The compute target's cost model (the reference's
-    ``cost_model_engine``; with no plan table or autotune in front of it,
-    the port needs no second name)."""
+                  target: str = "cuda", conv: ConvShape | None = None,
+                  device=None) -> str:
+    """The serve engine of an (m, k) x (k, n) level GEMM: (1) an installed
+    plan's dense table (dense problems only), (2) the autotune cache
+    (measured on ``device``'s type, ``target`` when None), (3) the cost
+    model.  With no plan and no measurement this is the cost model."""
+    if conv is None:
+        hit = _PLAN_TABLE.get(dense_plan_key(k, n, a_bits, w_bits, target))
+        if hit is not None:
+            return hit
+    backend = target if device is None else torch.device(device).type
+    tuned = _AUTOTUNE_CACHE.get(autotune_key(m, k, n, a_bits, w_bits,
+                                             backend, conv))
+    if tuned is not None:
+        return tuned[0]
+    return cost_model_engine(m, k, n, a_bits, w_bits, target, conv)
+
+
+def cost_model_engine(m: int, k: int, n: int, a_bits: int, w_bits: int,
+                      target: str = "cuda",
+                      conv: ConvShape | None = None) -> str:
+    """The compute target's cost model (no tables, no measurement)."""
     from repro_torch.api.targets import get_target
 
     return get_target(target).select_engine(m, k, n, a_bits, w_bits, conv)
@@ -124,6 +207,115 @@ def engine_feasible(engine: str, m: int, k: int, n: int, a_bits: int,
         return False, (f"one block needs {need} B of shared memory "
                        f"(> {budget} B)")
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Autotune: time the feasible engines at the real shape, cache the verdict
+# ---------------------------------------------------------------------------
+
+def candidate_engines(m: int, k: int, n: int, a_bits: int, w_bits: int,
+                      target: str = "cuda", conv: ConvShape | None = None,
+                      signed: bool = False) -> list[str]:
+    """Feasible engines worth timing, in the reference's order.  The
+    bit-plane loop engines are left out (never latency-competitive);
+    ``faithful`` only for binary operands; ``signed`` keeps the engines
+    of the signed LM path."""
+    out = []
+    for eng in ("implicit", "fused", "faithful", "f32dot", "int8"):
+        if eng == "faithful" and not (a_bits == 1 and w_bits == 1):
+            continue
+        if signed and eng not in SIGNED_ENGINES:
+            continue
+        if engine_feasible(eng, m, k, n, a_bits, w_bits, target, conv)[0]:
+            out.append(eng)
+    return out
+
+
+def _time_engine(fn, *args, repeats: int = 3, device=None) -> float:
+    """Best-of-``repeats`` wall microseconds of ``fn(*args)`` after one
+    warm call, the card synchronized before and after each call."""
+    sync = (torch.cuda.synchronize if torch.device(device or "cpu").type
+            == "cuda" else (lambda: None))
+    fn(*args)
+    best = float("inf")
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e6
+
+
+def autotune_engine(m: int, k: int, n: int, a_bits: int, w_bits: int,
+                    target: str = "cuda", conv: ConvShape | None = None,
+                    repeats: int = 3, device=None, signed: bool = False,
+                    act_dtype=torch.float32) -> tuple[str, dict]:
+    """Measure the candidate engines on ``device`` (default: the
+    ``target``'s own device) and cache the verdict: ``(engine, {engine:
+    us})``.  Random levels from ``np.random.RandomState(0)`` at the real
+    shape stand in for data (an engine's time does not depend on the
+    values).  Each engine is timed as it is served: ``quant_conv_serve`` /
+    ``quant_dense_serve`` on levels (the faithful weights packed once, as
+    a plan packs them), or with ``signed`` the LM path's
+    ``quant_dense_forward_signed_pre`` on ``act_dtype`` activations.  The
+    cache key's backend slot is the device's type."""
+    from repro_torch.core.and_accum import quant_dense_forward_signed_pre
+
+    device = torch.device(device if device is not None else target)
+    key = autotune_key(m, k, n, a_bits, w_bits, device.type, conv)
+    if signed:
+        key = ("signed",) + key[1:]
+    hit = _AUTOTUNE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    cands = candidate_engines(m, k, n, a_bits, w_bits, target, conv, signed)
+    if len(cands) < 2:
+        verdict = (cands[0] if cands else
+                   cost_model_engine(m, k, n, a_bits, w_bits, target, conv),
+                   {})
+        _AUTOTUNE_CACHE[key] = verdict
+        _DISPATCH_EPOCH[0] += 1
+        return verdict
+    rng = np.random.RandomState(0)
+    top_w = (1 << w_bits) - 1
+    w_lv = torch.from_numpy(rng.randint(0, top_w + 1, size=(k, n)).astype(
+        np.int8 if signed else np.uint8)).to(device)
+    s_w = float(np.float32(2.0 / max(top_w, 1)))
+    z_w = float(np.float32(top_w / 2.0))
+    timings: dict[str, float] = {}
+    for eng in cands:
+        if signed:
+            x = torch.from_numpy(rng.normal(size=(m, k)).astype(
+                np.float32)).to(device=device, dtype=act_dtype)
+            sw = torch.tensor(s_w, device=device)
+            zw = torch.tensor(z_w, device=device)
+            timings[eng] = _time_engine(
+                lambda: quant_dense_forward_signed_pre(
+                    x, w_lv, sw, zw, a_bits, w_bits, engine=eng),
+                repeats=repeats, device=device)
+            continue
+        planes = (pack_weight_planes(w_lv, w_bits) if eng == "faithful"
+                  else None)
+        if conv is not None:
+            cin = k // (conv.kh * conv.kw)
+            x_lv = rng.randint(0, 1 << a_bits,
+                               size=(conv.batch, conv.h, conv.w, cin))
+            fn = lambda x: quant_conv_serve(  # noqa: E731
+                x, w_lv, s_w, z_w, kh=conv.kh, kw=conv.kw,
+                stride=conv.stride, padding=conv.padding, a_bits=a_bits,
+                w_bits=w_bits, engine=eng, w_planes=planes)
+        else:
+            x_lv = rng.randint(0, 1 << a_bits, size=(m, k))
+            fn = lambda x: quant_dense_serve(  # noqa: E731
+                x, w_lv, s_w, z_w, a_bits=a_bits, w_bits=w_bits, engine=eng,
+                w_planes=planes)
+        x_lv = torch.from_numpy(x_lv.astype(np.uint8)).to(device)
+        timings[eng] = _time_engine(fn, x_lv, repeats=repeats, device=device)
+    best = min(timings, key=timings.get)
+    _AUTOTUNE_CACHE[key] = (best, timings)
+    _DISPATCH_EPOCH[0] += 1
+    return best, timings
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +408,7 @@ def quant_dense_serve(a_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     m, k = a_lv.shape
     n = w_lv.shape[1]
     if engine is None:
-        engine = select_engine(m, k, n, a_bits, w_bits)
+        engine = select_engine(m, k, n, a_bits, w_bits, device=a_lv.device)
     if engine == "fused":
         fn = fused_qgemm_plain if reference else fused_qgemm
         return fn(a_lv, w_lv, s_w, z_w, a_bits=a_bits, w_bits=w_bits,
@@ -253,7 +445,8 @@ def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
     if engine is None:
         engine = select_engine(
             b * oh * ow, kh * kw * cin, cout, a_bits, w_bits,
-            conv=ConvShape(h, w, kh, kw, stride, padding, batch=b))
+            conv=ConvShape(h, w, kh, kw, stride, padding, batch=b),
+            device=x_lv.device)
     if engine == "implicit":
         fn = conv_implicit_plain if reference else conv_implicit
         return fn(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw, stride=stride,
@@ -354,8 +547,11 @@ def attn_engine_feasible(engine: str, attn: AttnShape) -> tuple[bool, str]:
     """Can ``engine`` realize this attention geometry on the port?"""
     from .attn_flash import KERNEL_HEAD_DIMS, flash_levels_exact
 
-    if engine in ("chunked", "banded"):
-        return False, f"attention engine {engine!r} is not yet ported"
+    if engine == "banded":
+        if not attn.window:
+            return False, ("banded is the sliding-window realization (no "
+                           "window here)")
+        return True, ""
     if engine == "flash":
         if not attn.quantized:
             return False, ("flash consumes level-quantized q/k; dispatching"
@@ -377,16 +573,31 @@ def attn_engine_feasible(engine: str, attn: AttnShape) -> tuple[bool, str]:
             return False, (f"paged score dot inexact at head_dim="
                            f"{attn.head_dim} (exceeds the fp32 mantissa)")
         return True, ""
-    if engine == "full":
+    if engine in ("full", "chunked"):
         ok = attn.page_size is None
-        return ok, "" if ok else ("full is a contiguous-KV engine; "
+        return ok, "" if ok else (f"{engine} is a contiguous-KV engine; "
                                   "page-table geometries dispatch 'paged'")
     return False, f"unknown attention engine {engine!r}"
 
 
+def attn_plan_key(attn: AttnShape, backend: str) -> tuple:
+    """Plan-table key of an attention dispatch: keeps the sequence length
+    (the crossovers are about S), drops the batch; paged dispatches add
+    ``(page_size, seq_kv)`` (10-tuple; contiguous keys are 8-tuples)."""
+    key = ("attn", attn.seq_q, attn.heads, attn.head_dim,
+           bool(attn.causal), attn.window or 0, bool(attn.quantized),
+           backend)
+    if attn.page_size:
+        key = key + (attn.page_size, attn.seq_kv)
+    return key
+
+
 def select_attn_engine(attn: AttnShape, target: str = "cuda") -> str:
-    """The compute target's attention decision procedure (no plan table in
-    front of it yet)."""
+    """The attention engine: an installed plan's attention table first,
+    then the compute target's decision procedure."""
     from repro_torch.api.targets import get_target
 
+    hit = _PLAN_TABLE.get(attn_plan_key(attn, target))
+    if hit is not None:
+        return hit
     return get_target(target).select_attn_engine(attn)

@@ -33,6 +33,7 @@ resuming from its last commit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import time
@@ -141,20 +142,13 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _params_device(params) -> torch.device:
-    for p in params:
-        for v in p.values():
-            if torch.is_tensor(v):
-                return v.device
-    raise ValueError("plan params hold no tensor")
-
-
 def lm_fingerprint(params, cfg, **geometry) -> str:
-    """Stable short hash of what an LM engine's checkpoints depend on, in
-    place of an LM plan's fingerprint until the port has LM plans: the
-    config, the serving ``geometry``, every parameter leaf's path, shape
-    and dtype, and the bytes of its first and last 64 elements (one copy
-    to host).  An engine refuses a checkpoint whose hash differs."""
+    """Stable short hash of what an LM engine's checkpoints depend on,
+    where no compiled plan names the weights: the config, the serving
+    ``geometry``, every parameter leaf's path, shape and dtype, and the
+    bytes of its first and last 64 elements (one copy to host).  With a
+    plan, ``params`` is its fingerprint (a string, hashed as is).  An
+    engine refuses a checkpoint whose hash differs."""
     h = hashlib.sha256(repr((cfg, sorted(geometry.items()))).encode())
     samples = []
 
@@ -184,10 +178,14 @@ class CNNRunner:
     logits row)."""
 
     def __init__(self, plan):
+        from repro_torch.core.plan import _tree_device
+
         if plan.params is None:
             raise ValueError("structure-only plan (params=None) cannot serve")
         self.plan = plan
-        self.device = _params_device(plan.params)
+        self.device = _tree_device(plan.params, None)
+        if self.device is None:
+            raise ValueError("plan params hold no tensor")
 
     def shape_key(self, payload) -> tuple:
         return ("cnn",) + tuple(np.shape(payload))
@@ -208,13 +206,20 @@ class LMRunner:
 
     Payloads are a token array (horizon = ``new_tokens``) or a
     ``(tokens, new_tokens)`` tuple; the shape key holds prompt length and
-    horizon, so mixed horizons land in distinct buckets."""
+    horizon, so mixed horizons land in distinct buckets.
+
+    ``model_plan`` (a compiled LM ``ModelPlan``) supplies the params, and
+    prefill and every decode step run inside its ``activate()``: the
+    projections and attention dispatch through its tables."""
 
     def __init__(self, params, cfg, *, new_tokens: int, qmode: str = "serve",
-                 plan=None, reference: bool = False):
+                 plan=None, reference: bool = False, model_plan=None):
         from repro_torch.configs import SINGLE
         from repro_torch.launch.serve import make_prefill
 
+        self.model_plan = model_plan
+        if model_plan is not None:
+            params = model_plan.params
         self.params = params
         self.cfg = cfg
         self.new_tokens = new_tokens
@@ -227,12 +232,20 @@ class LMRunner:
         self._fp = None
 
     def plan_fingerprint(self) -> str:
-        """The identity a bucket's decode checkpoints are tagged with."""
+        """The identity a bucket's decode checkpoints are tagged with: the
+        model plan's fingerprint, else :func:`lm_fingerprint`."""
         if self._fp is None:
-            self._fp = lm_fingerprint(self.params, self.cfg, plan=self.plan,
-                                      qmode=self.qmode,
-                                      reference=self.reference)
+            self._fp = (self.model_plan.fingerprint()
+                        if self.model_plan is not None else
+                        lm_fingerprint(self.params, self.cfg, plan=self.plan,
+                                       qmode=self.qmode,
+                                       reference=self.reference))
         return self._fp
+
+    def _ctx(self):
+        """The model plan's scoped dispatch tables (or nothing)."""
+        return (self.model_plan.activate() if self.model_plan is not None
+                else contextlib.nullcontext())
 
     @staticmethod
     def split_payload(payload) -> tuple:
@@ -262,8 +275,9 @@ class LMRunner:
             self._generate[shape] = make_generate(
                 self.params, self.cfg, self.plan, self.qmode, *shape,
                 self.reference)
-        return generate(toks, new_tokens, self.cfg.vocab, self._prefill,
-                        self._generate[shape])
+        with self._ctx():
+            return generate(toks, new_tokens, self.cfg.vocab, self._prefill,
+                            self._generate[shape])
 
 
 class _SubmitRetryMixin:
@@ -478,6 +492,10 @@ class ContinuousLMEngine(_SubmitRetryMixin):
     one.  A new engine on the same ``checkpoint_dir`` adopts the state a
     previous one committed when its params, config and geometry hash to
     the same ``lm_fingerprint``; otherwise it starts clean.
+
+    ``model_plan`` (a compiled LM ``ModelPlan``) supplies the params, and
+    every step runs inside its ``activate()``; the checkpoint identity then
+    hashes the plan's fingerprint with the geometry.
     """
 
     def __init__(self, params, cfg, *, num_slots: int = 4,
@@ -488,13 +506,16 @@ class ContinuousLMEngine(_SubmitRetryMixin):
                  deadline_s: float | None = None,
                  checkpoint_dir: str | None = None, epoch_steps: int = 4,
                  faults=None, reference: bool = False,
-                 record_margins: bool = False,
+                 record_margins: bool = False, model_plan=None,
                  clock: Callable[[], float] = time.perf_counter):
         from repro_torch.configs import SINGLE
         from repro_torch.models import transformer as T
 
         if num_slots < 1:
             raise ValueError(f"need at least one slot, got {num_slots}")
+        self.model_plan = model_plan
+        if model_plan is not None:
+            params = model_plan.params
         quant = cfg.quant
         if (qmode == "serve" and quant.engine != "fp" and quant.w_bits < 32
                 and quant.act_scale_mode != "row"):
@@ -539,7 +560,8 @@ class ContinuousLMEngine(_SubmitRetryMixin):
             self.ckpt = Checkpointer(checkpoint_dir, keep=2,
                                      async_save=False)
             self._plan_fp = lm_fingerprint(
-                params, self.cfg, plan=self.plan, qmode=qmode,
+                params if model_plan is None else model_plan.fingerprint(),
+                self.cfg, plan=self.plan, qmode=qmode,
                 reference=reference, record_margins=record_margins,
                 num_slots=num_slots, page_size=page_size,
                 num_pages=num_pages, max_seq=self.max_seq, chunk=self.chunk)
@@ -576,11 +598,15 @@ class ContinuousLMEngine(_SubmitRetryMixin):
         self.program_shapes.add(("run", b, toks.shape[1]))
         cache = {"attn": dict(self._pools,
                               table=torch.from_numpy(table_rows).to(dev))}
-        logits, _ = T.paged_step(
-            self.params, cache, torch.from_numpy(toks).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(valid).to(dev),
-            self.cfg, self.plan, qmode=self.qmode, layers=self._layers,
-            reference=self.reference)
+        ctx = (self.model_plan.activate() if self.model_plan is not None
+               else contextlib.nullcontext())
+        with ctx:
+            logits, _ = T.paged_step(
+                self.params, cache, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(pos).to(dev),
+                torch.from_numpy(valid).to(dev), self.cfg, self.plan,
+                qmode=self.qmode, layers=self._layers,
+                reference=self.reference)
         self.stats["dispatches"] += 1
         return logits[:, :, :self.cfg.vocab].cpu().numpy()
 

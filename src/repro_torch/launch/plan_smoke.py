@@ -6,13 +6,15 @@ reloading process (port of ``repro/launch/plan_smoke.py``).
       [--out build/plan_smoke/svhn]
 
 The parent compiles an svhn plan (random weights from a seed) on the
-device, saves it and the expected logits, then starts a child
-interpreter that reloads the plan and serves the same batch.  The child
-patches ``weight_levels`` to raise — in ``repro_torch.core.quant`` and in
-``repro_torch.core.prequant``, which binds it by name — proving the
-reload never requantizes, and compares the logits bit for bit.  Prints
-``PLAN SMOKE OK`` and one JSON line (compile and load milliseconds,
-fingerprint, engines) on success.
+device with autotune (every layer's candidate engines timed there), saves
+it and the expected logits, then starts a child interpreter that reloads
+the plan and serves the same batch.  The child patches ``weight_levels``
+to raise — in ``repro_torch.core.quant`` and in
+``repro_torch.core.prequant``, which binds it by name — and
+``kernels.ops._time_engine`` too, proving the reload never requantizes
+and never measures, and compares the logits bit for bit.  Prints ``PLAN
+SMOKE OK`` and one JSON line (compile and load milliseconds, fingerprint,
+engines, the autotune measurements kept in the plan) on success.
 """
 from __future__ import annotations
 
@@ -57,13 +59,19 @@ def check(base: str, device: str) -> int:
     import repro_torch.core.prequant as prequant_mod
     import repro_torch.core.quant as quant_mod
     from repro_torch.core.plan import load_plan, plan_forward
+    from repro_torch.kernels import ops
 
     def _forbidden(*a, **kw):
         raise AssertionError("weight_levels called after a plan reload — "
                              "the plan path must never requantize")
 
+    def _no_measuring(*a, **kw):
+        raise AssertionError("_time_engine called after a plan reload — "
+                             "the plan path must never re-measure")
+
     quant_mod.weight_levels = _forbidden
     prequant_mod.weight_levels = _forbidden
+    ops._time_engine = _no_measuring
     _, _, x, _ = _setup(device)
     _sync(device)
     t0 = time.perf_counter()
@@ -73,7 +81,8 @@ def check(base: str, device: str) -> int:
     out = plan_forward(plan, x).cpu().numpy()
     np.testing.assert_array_equal(out, np.load(base + ".expected.npy"))
     print(f"PLAN SMOKE OK: reload {load_ms:.3f} ms, output bit-identical, "
-          f"no requantization (fingerprint {plan.fingerprint()})")
+          f"no requantization, no measurement (fingerprint "
+          f"{plan.fingerprint()}, {len(plan.autotune)} verdicts restored)")
     print("LOAD_MS", json.dumps(load_ms))
     return 0
 
@@ -104,7 +113,7 @@ def main(argv=None) -> int:
     _sync(args.device)
     t0 = time.perf_counter()
     plan = compile_model(params, spec, quant, batch_hints=(1, BATCH),
-                         img_hw=IMG, model="svhn_smoke")
+                         img_hw=IMG, autotune=True, model="svhn_smoke")
     _sync(args.device)
     compile_ms = (time.perf_counter() - t0) * 1e3
     base = args.out
@@ -129,7 +138,9 @@ def main(argv=None) -> int:
     print(json.dumps(dict(
         plan=base + ".json", device=args.device, compile_ms=compile_ms,
         load_ms=load_ms, fingerprint=plan.fingerprint(),
-        engines={lp.name: lp.engine for lp in plan.layers})))
+        engines={lp.name: lp.engine for lp in plan.layers},
+        autotune=[[list(k), eng, us] for k, (eng, us) in
+                  sorted(plan.autotune.items())])))
     return 0
 
 

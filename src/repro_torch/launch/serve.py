@@ -13,11 +13,16 @@ paged continuous-batching engine (``ContinuousLMEngine``), and
 ``--chaos-mtbf STEPS`` the resilient engine (``repro_torch.resilience``)
 under a seeded fault schedule with K-step decode epoch checkpoints
 (``--epoch-steps``, ``--checkpoint-dir``), checked against a fault-free
-run of the same engine.
+run of the same engine.  ``--plan-cache PATH`` compiles the LM's execution
+plan through the facade (``api.build(cfg, params=...).compile(...)``) and
+saves it, or reloads it when ``PATH.json`` exists (no requantization, no
+measurement); ``--autotune`` times the signed engines per GEMM shape on
+the device while compiling.  Every mode then serves through the plan.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -153,7 +158,7 @@ def _prompts(n: int, length: int, vocab: int) -> list:
             .astype(np.int32) for i in range(n)]
 
 
-def run_throughput(params, cfg, qmode: str, args) -> None:
+def run_throughput(params, cfg, qmode: str, args, model_plan=None) -> None:
     """``--throughput``: the bucket engine, sequential (max_batch=1) vs
     batched, closed loop, then an offered-rate sweep."""
     import json
@@ -165,7 +170,8 @@ def run_throughput(params, cfg, qmode: str, args) -> None:
 
     def mk(max_batch):
         return ServeEngine(
-            LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode),
+            LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode,
+                     model_plan=model_plan),
             max_batch=max_batch,
             flush_deadline_s=args.flush_deadline_ms / 1e3)
 
@@ -185,7 +191,7 @@ def run_throughput(params, cfg, qmode: str, args) -> None:
         print(f"offered {row['offered_rps']:>8} req/s: {json.dumps(row)}")
 
 
-def run_continuous(params, cfg, qmode: str, args) -> None:
+def run_continuous(params, cfg, qmode: str, args, model_plan=None) -> None:
     """``--continuous``: the paged continuous-batching engine against the
     bucket engine at the same capacity, on a mixed prompt/horizon set."""
     import json
@@ -204,12 +210,14 @@ def run_continuous(params, cfg, qmode: str, args) -> None:
          .astype(np.int32), int(rng.choice(gens)))
         for _ in range(args.requests)]
     bucket = ServeEngine(
-        LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode),
+        LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode,
+                 model_plan=model_plan),
         max_batch=args.batch, flush_deadline_s=args.flush_deadline_ms / 1e3)
     cont = ContinuousLMEngine(
         params, cfg, num_slots=args.slots, page_size=args.page_size,
         num_pages=args.pages, new_tokens=args.new_tokens,
-        max_seq=args.prompt_len + 2 * args.new_tokens, qmode=qmode)
+        max_seq=args.prompt_len + 2 * args.new_tokens, qmode=qmode,
+        model_plan=model_plan)
     rb = run_offered_load(warm_engine(bucket, payloads), payloads, None)
     rc = run_offered_load(warm_engine(cont, payloads), payloads, None)
     print(f"arch={cfg.name} device={args.device} requests={args.requests} "
@@ -221,7 +229,7 @@ def run_continuous(params, cfg, qmode: str, args) -> None:
     print(f"programs={sorted(cont.program_shapes)} pool={cont.pool.stats()}")
 
 
-def run_chaos(params, cfg, qmode: str, args) -> None:
+def run_chaos(params, cfg, qmode: str, args, model_plan=None) -> None:
     """``--chaos-mtbf``: the resilient engine under a seeded exponential
     fault schedule with decode epoch checkpoints; every completed request
     is held against a fault-free run of the same engine configuration."""
@@ -234,7 +242,8 @@ def run_chaos(params, cfg, qmode: str, args) -> None:
 
     def mk(ckdir, faults=None):
         runner = EpochLMRunner(params, cfg, new_tokens=args.new_tokens,
-                               epoch_steps=args.epoch_steps, qmode=qmode)
+                               epoch_steps=args.epoch_steps, qmode=qmode,
+                               model_plan=model_plan)
         return ResilientServeEngine(
             runner, fault_plan=faults, checkpoint_dir=ckdir,
             max_batch=args.batch,
@@ -281,8 +290,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--quant", default=None, choices=list(PAPER_CONFIGS))
-    ap.add_argument("--plan-cache", default=None, metavar="PATH")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="compile-once execution plan: reload PATH.json if "
+                         "it exists (no requantization, no autotune), else "
+                         "compile the plan and save it there")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time the signed engines per GEMM shape on the "
+                         "device while compiling the plan")
     ap.add_argument("--throughput", action="store_true")
     ap.add_argument("--continuous", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
@@ -303,11 +317,6 @@ def main(argv=None):
                     help="--chaos-mtbf: decode epoch checkpoint directory "
                          "(default: a temporary directory)")
     args = ap.parse_args(argv)
-    for flag in ("plan_cache", "autotune"):
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not yet ported (it needs LM "
-                "plans)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -325,13 +334,38 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     from repro_torch.models.layers import prequantize_params
 
-    params = prequantize_params(T.init_lm(gen, cfg, SINGLE, device), cfg)
+    model_plan = None
+    if args.plan_cache or args.autotune:
+        from repro_torch import api
+
+        compiled = api.build(cfg, params=T.init_lm(gen, cfg, SINGLE,
+                                                   device)).compile(
+            batch_hints=(args.batch,), prompt_len=args.prompt_len,
+            autotune=args.autotune, cache=args.plan_cache)
+        model_plan = compiled.plan
+        if compiled.reloaded:
+            print(f"plan: reloaded {args.plan_cache} in "
+                  f"{compiled.compile_s * 1e3:.1f}ms (requantization "
+                  f"+ autotune skipped)")
+        else:
+            print(f"plan: compiled{' +autotune' if args.autotune else ''} in "
+                  f"{compiled.compile_s * 1e3:.1f}ms -> {compiled.cache_path}")
+        params = model_plan.params
+    else:
+        params = prequantize_params(T.init_lm(gen, cfg, SINGLE, device), cfg)
+    # with a plan, every dispatch of the run is a lookup in its tables
+    with (model_plan.activate() if model_plan is not None
+          else contextlib.nullcontext()):
+        return _run(params, cfg, qmode, args, device, model_plan)
+
+
+def _run(params, cfg, qmode: str, args, device, model_plan) -> None:
     if args.chaos_mtbf is not None:
-        return run_chaos(params, cfg, qmode, args)
+        return run_chaos(params, cfg, qmode, args, model_plan)
     if args.continuous:
-        return run_continuous(params, cfg, qmode, args)
+        return run_continuous(params, cfg, qmode, args, model_plan)
     if args.throughput:
-        return run_throughput(params, cfg, qmode, args)
+        return run_throughput(params, cfg, qmode, args, model_plan)
     B, S_p, S_d = args.batch, args.prompt_len, args.new_tokens
     prompts = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab, size=(B, S_p)).astype(np.int32)).to(device)

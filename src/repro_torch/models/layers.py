@@ -6,9 +6,11 @@ heads ``(B, S, H, hd)``, params as nested dicts of tensors.  Every
 projection is a :func:`qdense`: prequantized ``{"q", "s", "z"}`` weights
 run the signed level GEMM; float weights are a plain matmul on fp configs.
 
-Attention engines: ``full`` (materialized logits, plain PyTorch — the
-reference computes it in XLA), ``flash`` (``kernels.attn_flash.attn_flash``,
-the CUDA kernel for contiguous quantized prefill) and ``paged``
+Attention engines: ``full`` (materialized logits), ``chunked`` (an
+online-softmax scan over padded KV chunks) and ``banded`` (block-diagonal
+window bands) in plain PyTorch — the reference computes them in XLA —
+``flash`` (``kernels.attn_flash.attn_flash``, the CUDA kernel for
+contiguous quantized prefill) and ``paged``
 (``kernels.attn_flash.attn_paged``, the CUDA kernel for the page-table
 cache).  ``reference=True`` runs the kernels' plain versions on any
 device.  Caches are updated in place (decode writes one slot of the
@@ -23,7 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.and_accum import quant_dense_forward_signed_pre
+from repro_torch.core.and_accum import (SIGNED_ENGINES,
+                                        quant_dense_forward_signed_pre)
 from repro_torch.core.quant import QuantConfig, weight_levels
 
 NEG_INF = -1e30
@@ -41,11 +44,11 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
     level GEMM with the config's activation-scale mode; a float ``w`` is a
     plain matmul on fp configs and on first/last layers kept fp."""
     if isinstance(w, dict):
-        _signed_engine(quant)
         a_scale = "row" if quant.act_scale_mode == "row" else None
         return quant_dense_forward_signed_pre(
             x, w["q"], w["s"], w["z"], quant.a_bits, quant.w_bits,
-            a_scale=a_scale)
+            a_scale=a_scale,
+            engine=_signed_engine(x, w["q"].shape[-1], quant))
     if quant.engine == "fp" or quant.w_bits >= 32 or (
             role in ("first", "last") and quant.first_last_fp):
         return x @ w.to(x.dtype)
@@ -54,15 +57,20 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
                      "path is not ported)")
 
 
-def _signed_engine(quant: QuantConfig) -> str:
-    """Level-GEMM engine of the signed serve path.  The reference maps every
-    dispatcher pick that is not a plain level engine down to ``int8``
-    (``layers.py:82-99``); the port has that one engine
-    (``core.and_accum.centred_gemm_int``)."""
-    if quant.engine in ("planes", "packed", "f32dot"):
-        raise ValueError(f"signed level engine {quant.engine!r} is not yet "
-                         f"ported (ported: 'int8')")
-    return "int8"
+def _signed_engine(x: torch.Tensor, n_out: int, quant: QuantConfig) -> str:
+    """Level-GEMM engine of the signed serve path: an explicit ``planes`` /
+    ``packed`` / ``int8`` / ``f32dot`` from the config, else the
+    dispatcher's pick (an installed plan's dense table first), with every
+    engine that is not a signed one (the unsigned fused / faithful
+    epilogues) mapped to ``int8``."""
+    if quant.engine in SIGNED_ENGINES:
+        return quant.engine
+    from repro_torch.kernels.ops import select_engine
+
+    m = x.numel() // max(x.shape[-1], 1)
+    eng = select_engine(m, x.shape[-1], n_out, quant.a_bits, quant.w_bits,
+                        device=x.device)
+    return eng if eng in SIGNED_ENGINES else "int8"
 
 
 def prequantize_params(params, cfg):
@@ -171,12 +179,99 @@ def attn_full(q, k, v, *, causal: bool, window: Optional[int], q_pos,
     return torch.einsum("bhqs,bshd->bqhd", p, v)
 
 
-def attn_chunked(*args, **kwargs):
-    raise NotImplementedError("attn_chunked is not yet ported")
+def _chunk_plan(n: int, target: int) -> tuple[int, int]:
+    """(chunk, padded_n) of the online-softmax scan: n padded up to a
+    multiple of the target chunk (never a chunk shrunk to a divisor of a
+    prime length); padded slots carry position -1, which ``_mask`` drops."""
+    c = min(target, n)
+    return c, -(-n // c) * c
 
 
-def attn_banded(*args, **kwargs):
-    raise NotImplementedError("attn_banded is not yet ported")
+def _pad_chunk_dim(x: torch.Tensor, padded: int, axis: int = 1):
+    pad = padded - x.shape[axis]
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _pad_positions(pos: torch.Tensor, padded: int) -> torch.Tensor:
+    pad = padded - pos.shape[0]
+    if pad == 0:
+        return pos
+    return torch.cat([pos, pos.new_full((pad,), -1)])
+
+
+def attn_banded(q, k, v, *, window: int, q_pos, kv_pos) -> torch.Tensor:
+    """Sliding-window attention over the window band only: q block i (of
+    ``window`` rows) attends KV ``[max(0, (i-1)W), (i+1)W)``, so the work
+    is ~2·S·W logits instead of S^2."""
+    sq, w = q.shape[1], window
+    outs = []
+    for i in range(-(-sq // w)):
+        q0, q1 = i * w, min((i + 1) * w, sq)
+        k0 = max(0, (i - 1) * w)
+        outs.append(attn_full(
+            q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], causal=True, window=w,
+            q_pos=q_pos[q0:q1], kv_pos=kv_pos[k0:q1]))
+    return torch.cat(outs, dim=1)
+
+
+def attn_chunked(q, k, v, *, causal: bool, window: Optional[int], q_pos,
+                 kv_pos, q_chunk: int = 1024, kv_chunk: int = 1024,
+                 skip_masked: bool = True) -> torch.Tensor:
+    """Online-softmax attention in O(chunk^2) memory: a loop over q chunks
+    with an inner loop over KV chunks (the flash dataflow in plain
+    PyTorch), lengths padded to whole chunks.  A KV chunk wholly masked
+    for a q chunk (the causal upper triangle, out-of-window bands, all
+    padding) is skipped: its softmax weights are all zero, so skipping
+    leaves the running (max, sum, acc) exactly as computing it would."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    q_chunk, sq_p = _chunk_plan(sq, q_chunk)
+    kv_chunk, skv_p = _chunk_plan(skv, kv_chunk)
+    q = _pad_chunk_dim(q, sq_p)
+    k = _pad_chunk_dim(k, skv_p)
+    v = _pad_chunk_dim(v, skv_p)
+    q_pos = _pad_positions(q_pos, sq_p)
+    kv_pos = _pad_positions(kv_pos, skv_p)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for q0 in range(0, sq_p, q_chunk):
+        qi = q[:, q0:q0 + q_chunk].transpose(1, 2)     # (B, H, Cq, hd)
+        qpos = q_pos[q0:q0 + q_chunk]
+        qmax, qmin = qpos.max(), qpos.min()
+        m_run = qi.new_full((b, h, q_chunk), NEG_INF, dtype=torch.float32)
+        l_run = qi.new_zeros((b, h, q_chunk), dtype=torch.float32)
+        acc = qi.new_zeros((b, h, q_chunk, hd), dtype=torch.float32)
+        for k0 in range(0, skv_p, kv_chunk):
+            kpos = kv_pos[k0:k0 + kv_chunk]
+            if skip_masked:
+                alive = kpos >= 0
+                if causal:
+                    alive &= kpos <= qmax
+                if window is not None:
+                    alive &= kpos > qmin - window
+                if not bool(alive.any()):
+                    continue
+            kj = k[:, k0:k0 + kv_chunk].transpose(1, 2)
+            vj = v[:, k0:k0 + kv_chunk].transpose(1, 2)
+            s = torch.einsum("bhqd,bhsd->bhqs", qi.float(), kj.float()) * scale
+            msk = _mask(qpos, kpos, causal, window)[None, None]
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.max(dim=-1).values)
+            p = torch.exp(s - m_new[..., None]) * msk
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            # p rounded to v's dtype as the reference rounds it; the
+            # products are exact in float32
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqs,bhsd->bhqd", p.to(vj.dtype).float(), vj.float())
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype).transpose(1, 2))
+    return torch.cat(outs, dim=1)[:, :sq]
 
 
 def moe_fwd(*args, **kwargs):
@@ -270,19 +365,26 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
             engine = resolve_attn_engine(
                 cfg, seq_q=S, seq_kv=kv.shape[1], heads=hp, causal=causal,
                 window=window, qmode=qmode)
-        if engine == "flash" and S == kv.shape[1]:
+        if engine == "banded" and window is not None and S > 2 * window:
+            out = attn_banded(q, kv, vv, window=window, q_pos=q_pos,
+                              kv_pos=kv_pos)
+        elif engine == "flash" and S == kv.shape[1]:
+            # flash tiles contiguous prefill positions; ragged cache
+            # geometries take the position-indexed chunked scan below
             from repro_torch.kernels.attn_flash import attn_flash
 
             bits = min(cfg.quant.a_bits, 8)
             out = attn_flash(q, kv, vv, causal=bool(causal), window=window,
                              q_bits=bits, k_bits=bits,
                              reference=reference).to(q.dtype)
-        elif engine in ("full", "flash"):
+        elif engine in ("chunked", "banded", "flash"):
+            out = attn_chunked(q, kv, vv, causal=causal, window=window,
+                               q_pos=q_pos, kv_pos=kv_pos)
+        elif engine == "full":
             out = attn_full(q, kv, vv, causal=causal, window=window,
                             q_pos=q_pos, kv_pos=kv_pos)
         else:
-            raise NotImplementedError(f"attention engine {engine!r} is not "
-                                      f"yet ported")
+            raise ValueError(f"unknown attention engine {engine!r}")
     hm = _head_mask(cfg, plan, out.dtype, out.device)
     if hm is not None:
         out = out * hm[None, None, :, None]

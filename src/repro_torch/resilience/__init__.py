@@ -13,17 +13,16 @@ the running serve stack:
 * :class:`DegradePolicy` — fall back to a pre-compiled lower-bit plan
   under fault pressure or an energy budget.
 
-Entry points: construct the pieces directly, or, for a CNN plan, through
-the facade::
+Entry points: construct the pieces directly (``ResilientServeEngine(
+EpochLMRunner(params, cfg, new_tokens=..., epoch_steps=4),
+checkpoint_dir=...)``), or through the facade, for a CNN or an LM plan::
 
     compiled = api.build(spec, W1A8, params=p).compile(batch_hints=(1, 8))
     dep = compiled.serve(resilience=ResilienceConfig(
         fault_plan=FaultPlan(mtbf=32.0, seed=0),
         degrade=DegradePolicy(fault_threshold=2)), fallback=w1a1_compiled)
-
-An LM engine is built directly, ``ResilientServeEngine(EpochLMRunner(
-params, cfg, new_tokens=..., epoch_steps=4), checkpoint_dir=...)``: the
-facade's LM branch needs LM plans, which are not yet ported.
+    lm = api.build(cfg, params=lm_params).compile()
+    dep = lm.serve(new_tokens=16, resilience=ResilienceConfig(...))
 """
 from __future__ import annotations
 
@@ -59,23 +58,20 @@ class ResilienceConfig:
 
 
 def build_resilient_engine(compiled, config: ResilienceConfig, *,
-                           fallback=None, **engine_kw) -> ResilientServeEngine:
-    """Resilient engine over a CNN :class:`repro_torch.api.session.
-    CompiledModel`.  ``fallback`` is another CompiledModel (same network,
-    lower bit width) compiled ahead of time; with ``config.degrade`` set,
-    the engine swaps to it under fault pressure or a spent energy
-    budget."""
-    from repro_torch.core.plan import PlanError
-    from repro_torch.launch.engine import CNNRunner
+                           fallback=None, new_tokens: int = 16,
+                           qmode: str = "serve",
+                           **engine_kw) -> ResilientServeEngine:
+    """Resilient engine over a :class:`repro_torch.api.session.
+    CompiledModel`: a CNN plan serves through ``CNNRunner``, an LM plan
+    through :class:`EpochLMRunner` with ``config.epoch_steps``.
+    ``fallback`` is another CompiledModel (same network, lower bit width)
+    compiled ahead of time; with ``config.degrade`` set, the engine swaps
+    to it under fault pressure or a spent energy budget."""
 
     def _runner(c):
-        if c.plan.kind != "cnn":
-            raise PlanError(
-                f"resilient serving through the facade takes CNN plans "
-                f"(got {c.plan.kind!r}); for an LM build "
-                "ResilientServeEngine(EpochLMRunner(params, cfg, ...)) "
-                "directly: LM plans are not yet ported")
-        return CNNRunner(c.plan)
+        return c.runner(new_tokens=new_tokens, qmode=qmode,
+                        epoch_steps=(config.epoch_steps
+                                     if c.plan.kind == "lm" else None))
 
     fallbacks = () if fallback is None else (_runner(fallback),)
     return ResilientServeEngine(

@@ -58,9 +58,11 @@ class EpochLMRunner(LMRunner):
     supports_epochs = True
 
     def __init__(self, params, cfg, *, new_tokens: int, epoch_steps: int = 4,
-                 qmode: str = "serve", plan=None, reference: bool = False):
+                 qmode: str = "serve", plan=None, reference: bool = False,
+                 model_plan=None):
         super().__init__(params, cfg, new_tokens=new_tokens, qmode=qmode,
-                         plan=plan, reference=reference)
+                         plan=plan, reference=reference,
+                         model_plan=model_plan)
         if epoch_steps < 1:
             raise ValueError(f"epoch_steps must be >= 1, got {epoch_steps}")
         self.epoch_steps = int(epoch_steps)
@@ -78,7 +80,8 @@ class EpochLMRunner(LMRunner):
         from repro_torch.launch.serve import greedy_token, grow_cache
 
         _, prompt_len, new_tokens = key
-        logits, cache = self._prefill(toks)
+        with self._ctx():
+            logits, cache = self._prefill(toks)
         cache = grow_cache(cache, prompt_len, prompt_len + new_tokens)
         return cache, greedy_token(logits, self.cfg.vocab), int(prompt_len)
 
@@ -91,10 +94,11 @@ class EpochLMRunner(LMRunner):
             self._step = make_decode_step(self.params, self.cfg, self.plan,
                                           self.qmode, self.reference)
         toks = []
-        for _ in range(steps):
-            cache, tok, _ = self._step(cache, tok, pos)
-            pos += 1
-            toks.append(tok)
+        with self._ctx():
+            for _ in range(steps):
+                cache, tok, _ = self._step(cache, tok, pos)
+                pos += 1
+                toks.append(tok)
         return cache, tok, pos, torch.cat(toks, dim=1)
 
     def decode_state_template(self, key, batch: int, emitted: int) -> dict:

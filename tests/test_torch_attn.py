@@ -293,6 +293,10 @@ SHAPES = [  # AttnShape kwargs the reference's TPU target and the port share
     dict(seq_q=1, seq_kv=288, heads=15, head_dim=64, quantized=False,
          page_size=16),
     dict(seq_q=512, seq_kv=512, heads=4, head_dim=32, quantized=False),
+    # the reference's chunked and banded geometries
+    dict(seq_q=8192, seq_kv=8192, heads=4, head_dim=32, quantized=False),
+    dict(seq_q=300, seq_kv=300, heads=4, head_dim=32, window=64,
+         quantized=False),
 ]
 
 
@@ -308,11 +312,17 @@ def test_cuda_attn_engine_equals_tpu_table(kw):
     dict(seq_q=300, seq_kv=300, heads=4, head_dim=32, window=64),
 ])
 def test_chunked_and_banded_geometries_raise(kw):
-    with pytest.raises(NotImplementedError):
-        ops.select_attn_engine(ops.AttnShape(**kw))
-    for eng in ("chunked", "banded"):
-        ok, why = ops.attn_engine_feasible(eng, ops.AttnShape(**kw))
-        assert not ok and "not yet ported" in why
+    """These geometries raised while the chunked and banded engines were
+    not ported; they now resolve as the reference's TPU target resolves
+    them, to an engine the port can run, and no longer raise."""
+    attn = ops.AttnShape(**kw)
+    eng = ops.select_attn_engine(attn)
+    assert eng == jtargets.get_target("tpu").select_attn_engine(
+        jops.AttnShape(**kw))
+    assert eng == ("banded" if kw.get("window") else "chunked")
+    assert ops.attn_engine_feasible("chunked", attn) == (True, "")
+    assert ops.attn_engine_feasible("banded", attn)[0] == bool(
+        kw.get("window"))
 
 
 def test_flash_threshold_is_the_module_constant(monkeypatch):

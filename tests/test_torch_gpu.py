@@ -725,3 +725,58 @@ def test_lm_smoke_serving_on_card_equals_plain_versions(cuda_device,
                              reference=True).serve(payloads)
     for a, b in zip(res, ref):
         np.testing.assert_array_equal(a.value, b.value)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["w1a1", "w1a8"])
+def test_autotune_on_the_card_picks_a_candidate(cuda_device, qname):
+    """``compile(autotune=True)`` on params on the card times every
+    layer's candidates there (keys name ``cuda``), each verdict is one of
+    them, and the plan's logits equal the heuristic plan's bit for bit."""
+    from repro_torch.core import plan as P
+
+    ops.clear_plan_state()
+    spec = svhn_cnn_spec(16)
+    params = init_cnn(torch.Generator(device="cuda").manual_seed(0), spec)
+    q = PAPER_CONFIGS[qname]
+    tuned = api.build(spec, q, params=params, img_hw=16).compile(
+        batch_hints=(1, 8), autotune=True)
+    heur = api.build(spec, q, params=params, img_hw=16).compile(
+        batch_hints=(1, 8))
+    assert tuned.plan.autotune
+    assert all(k[-1] == "cuda" for k in tuned.plan.autotune)
+    for lp in tuned.plan.layers:
+        if lp.fp:
+            continue
+        assert lp.engine_source == "autotuned"
+        for b, eng in lp.engines:
+            conv = ops.ConvShape(lp.in_h, lp.in_w, lp.kh, lp.kw, lp.stride,
+                                 lp.padding, batch=b)
+            assert eng in ops.candidate_engines(
+                b * lp.out_h * lp.out_w, lp.k, lp.cout, lp.a_bits,
+                lp.w_bits, conv=conv)
+    x = torch.rand((8, 16, 16, 3), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    assert torch.equal(P.plan_forward(tuned.plan, x),
+                       P.plan_forward(heur.plan, x))
+    ops.clear_plan_state()
+
+
+@pytest.mark.gpu
+def test_implicit_conv_takes_a_strided_input(cuda_device):
+    """A full-window FC layer's input comes from ``resize_linear`` strided;
+    the implicit engine (which autotune may pick there) gets contiguous
+    levels and equals the fused engine bit for bit."""
+    from repro_torch.core.conv_lowering import quant_conv2d_pre
+    from repro_torch.models.cnn import resize_linear
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = resize_linear(torch.rand((8, 13, 13, 64), generator=g,
+                                 device="cuda"), 6)
+    assert not x.is_contiguous()
+    w_lv = torch.randint(0, 2, (6 * 6 * 64, 96), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    kw = dict(kh=6, kw=6, stride=1, padding="VALID", a_bits=8, w_bits=1,
+              s_w=0.05, z_w=0.5)
+    got = quant_conv2d_pre(x, w_lv, engine="implicit", **kw)
+    assert torch.equal(got, quant_conv2d_pre(x, w_lv, engine="fused", **kw))

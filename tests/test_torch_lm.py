@@ -485,13 +485,28 @@ def test_cli_runs_on_cpu(capsys):
     assert "generated 2x3 tokens" in out
 
 
-@pytest.mark.parametrize("flag", [["--plan-cache", "/tmp/x"], ["--autotune"],
+@pytest.mark.parametrize("flag", [["--plan-cache"], ["--autotune"],
                                   ["--quant", "w32a32"]])
-def test_cli_unported_modes_raise(flag):
-    """LM plans (``--plan-cache``, ``--autotune``) and the unquantized
-    serve path are not ported (``--chaos-mtbf`` is: see below)."""
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu", "--quant", "w1a8"] + flag)
+def test_cli_unported_modes_raise(flag, tmp_path, capsys):
+    """The unquantized serve path is not ported and raises; LM plans
+    (``--plan-cache``, ``--autotune``) are, and serve the tokens of the
+    plan-free run."""
+    base = ["--device", "cpu", "--quant", "w1a8", "--batch", "2",
+            "--prompt-len", "8", "--new-tokens", "3"]
+    if flag == ["--quant", "w32a32"]:
+        with pytest.raises(NotImplementedError):
+            serve.main(base + flag)
+        return
+    if flag == ["--plan-cache"]:
+        flag = flag + [str(tmp_path / "lm")]
+    serve.main(base)
+    plain = capsys.readouterr().out
+    serve.main(base + flag)
+    out = capsys.readouterr().out
+    assert "plan: compiled" in out
+    samples = [ln for ln in plain.splitlines() if "sample[" in ln]
+    assert samples and samples == [ln for ln in out.splitlines()
+                                   if "sample[" in ln]
 
 
 def test_cli_chaos_runs_on_cpu(capsys, tmp_path):

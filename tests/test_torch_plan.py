@@ -280,7 +280,7 @@ def test_version_gate_and_kind(tmp_path):
     path = P.save_plan(plan, str(tmp_path / "svhn"))
     meta = json.load(open(path))
     for field, value, match in (("version", 2, "version"),
-                                ("kind", "lm", "LM plans")):
+                                ("kind", "rnn", "kinds")):
         bad = dict(meta, **{field: value})
         bad_path = str(tmp_path / f"bad_{field}.json")
         json.dump(bad, open(bad_path, "w"))
@@ -349,16 +349,41 @@ def test_deployment_queue_passthroughs_and_report_rows(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(autotune=True), dict(verify=True)])
 def test_unported_compile_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.build(cnn.svhn_cnn_spec(WIDTH), quant.W1A4,
-                  img_hw=IMG).compile(**kw)
+    """The static prover is not ported: ``verify=True`` raises.  Autotune
+    is: it times the candidates on the params' device (here the CPU) and
+    keeps the measurements in the plan."""
+    spec = cnn.svhn_cnn_spec(WIDTH)
+    model = api.build(spec, quant.W1A4, img_hw=IMG, params=cnn.init_cnn(
+        torch.Generator().manual_seed(0), spec))
+    if kw.get("verify"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            model.compile(**kw)
+        return
+    from repro_torch.kernels import ops
+
+    ops.clear_plan_state()
+    compiled = model.compile(**kw)
+    tuned = [lp for lp in compiled.plan.layers if not lp.fp]
+    assert tuned and all(lp.engine_source == "autotuned" for lp in tuned)
+    assert compiled.plan.autotune
+    assert all(k[-1] == "cpu" for k in compiled.plan.autotune)
+    ops.clear_plan_state()
 
 
 def test_lm_session_raises():
+    """``build(cfg)`` of an ArchConfig opens an LM session (it raised
+    before LM plans were ported): kind "lm", the config's own quant unless
+    overridden."""
     from repro_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="LM plans"):
-        api.build(get_config("smollm-360m"), quant.W1A8)
+    cfg = get_config("smollm-360m")
+    m = api.build(cfg)
+    assert m.kind == "lm" and m.quant == cfg.quant and m.name == cfg.name
+    m8 = api.build(cfg, quant.W1A8)
+    assert m8.kind == "lm" and m8.quant == quant.W1A8
+    assert m8.spec.quant == quant.W1A8
+    with pytest.raises(TypeError):
+        api.build(cnn.svhn_cnn_spec(WIDTH))
 
 
 def test_plan_smoke_cpu_in_a_subprocess(tmp_path):

@@ -542,7 +542,9 @@ def test_lm_facade_branch_raises(lm):
 
     plan = P.compile_model(None, cnn.svhn_cnn_spec(8), W1A8, img_hw=16)
     compiled = api.CompiledModel(dataclasses.replace(plan, kind="lm"))
-    with pytest.raises(P.PlanError, match="LM plans are not yet ported"):
+    # the facade's LM branch is ported; an LM plan without its ArchConfig
+    # (no model attached) cannot serve and raises
+    with pytest.raises(P.PlanError, match="ArchConfig"):
         build_resilient_engine(compiled, ResilienceConfig())
 
 
