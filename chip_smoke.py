@@ -109,13 +109,38 @@ Phases, each of which makes the script exit nonzero when it fails:
    after a save and ``api.load``, 32 ``attn_flash`` launches per bucket
    prefill, and ``compile_lm(autotune=True)``'s ``f32dot``/``int8`` times
    at the four shapes; every CNN kernel and ``attn_flash`` launch;
-6. one JSON line listing the kernels, then the contract's last line.
+5d. the dense, MoE and recurrent architectures, one ``FAMILIES`` line
+   (W1A8, bf16, random weights from FAM_SEED, each model freed before the
+   next): phi3-mini-3.8b, granite-moe-3b-a800m, recurrentgemma-9b and
+   rwkv6-1.6b at full config, qwen3-32b, yi-34b and deepseek-moe-16b at
+   full width and 8 layers (``reduced``: their float32 params do not fit
+   beside the working set), each a bucket of two prompts (2048 tokens,
+   512 for rwkv6) through ``ServeEngine`` + ``LMRunner``: params GB, init
+   and prequantize seconds, prefill ms and tokens/s, the attention engine
+   per block kind, launches checked (``attn_flash`` once per attention
+   layer of the prefill; none for rwkv6), every kernel call of the run
+   held to its plain version on the model's own inputs, each side run
+   twice bit for bit, the prefill's last logits moved by the kernels at
+   most FAM_GAP_FACTOR x what the plain version at another float order
+   moves them, the tokens compared with the plain run (each first
+   difference reported with its margin; rwkv6's bucket equals
+   ``serve_once`` bit for bit); phi3-mini also serves phase 5's
+   continuous mix through ``ContinuousLMEngine`` (``attn_paged`` at hd
+   96; launches checked, calls held in context, the in-context rerun's
+   tokens the counted run's) and one decode step under the profiler;
+   the continuous engine refuses every other pattern; the ``KERNEL`` rows
+   of phase 3 include ``attn_flash`` at hd 96 and 256 and ``attn_paged``
+   at hd 96 (phi3's decode and chunk shapes, and 128-page tables);
+6. one JSON line listing the kernels (with the families phase's
+   launches), then the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
 The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -333,6 +358,35 @@ torch.cuda.synchronize()
 print(json.dumps(dict(ms=1e3 * (time.perf_counter() - t0),
                       fingerprint=c.fingerprint())))
 """
+
+# the families phase: (arch, layers kept or None for all, prompt tokens,
+# new tokens, continuous engine too), each served as a bucket of FAM_BATCH
+# prompts; the three
+# largest at full width but 8 layers (their float32 params at full depth do
+# not fit beside the working set on an 80 GB card).  phi3-mini also serves
+# the LM main path's continuous request mix (CONT_*) through the
+# continuous engine
+FAMILIES = (("phi3-mini-3.8b", None, 2048, 16, True),
+            ("granite-moe-3b-a800m", None, 2048, 16, False),
+            ("recurrentgemma-9b", None, 2048, 16, False),
+            ("rwkv6-1.6b", None, 512, 16, False),
+            ("qwen3-32b", 8, 2048, 8, False),
+            ("yi-34b", 8, 2048, 8, False),
+            ("deepseek-moe-16b", 8, 2048, 8, False))
+FAM_BATCH, FAM_SEED = 2, 7
+# The families' gates.  These per-tensor-quantized networks carry one
+# rounding of an attention output into flipped activation levels and MoE
+# routes (in float32 compute too: phi3-mini's first token left the plain
+# run's at a 0.075 margin on the card), so their tokens are compared with
+# the plain run and reported, not held to a margin.  What is held: every
+# kernel call in context (``_InContext``); each side run twice, bit for
+# bit (a difference sits at the same position every run); and the
+# prefill's last logits, which the kernels may move by at most
+# FAM_GAP_FACTOR x what the plain version at another float order moves
+# them (``_plain_reordered``; 0.85-1.25x on the card).  RWKV-6 runs no
+# kernel: its bucket equals ``serve_once`` on the same batch bit for bit.
+FAM_GAP_FACTOR = 2.0
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -809,9 +863,15 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     rs = np.random.RandomState(5)
     summary = {"attn_flash": [], "attn_paged": []}
-    for case, (b, sq, h, hd, window) in (
-            ("bucket prefill", (LM_BATCH, LM_PROMPT, 15, 64, None)),
-            ("window 256", (1, LM_PROMPT, 15, 64, 256))):
+    # the SmolLM main path's shapes, then the families phase's (phi3-mini's
+    # hd 96 prefill, recurrentgemma's windowed hd 256 'attn_local' prefill)
+    for case, (b, sq, h, hd, window), main in (
+            ("bucket prefill", (LM_BATCH, LM_PROMPT, 15, 64, None), True),
+            ("window 256", (1, LM_PROMPT, 15, 64, 256), True),
+            ("phi3-mini prefill hd 96", (FAM_BATCH, 2048, 32, 96, None),
+             False),
+            ("recurrentgemma attn_local prefill hd 256",
+             (FAM_BATCH, 2048, 16, 256, 2048), False)):
         q, k, v = (torch.randn((b, sq, h, hd), generator=gen, device=dev)
                    for _ in range(3))
         kw = dict(causal=True, window=window)
@@ -843,7 +903,9 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
         else:
             lib = lambda t=t: F.scaled_dot_product_attention(  # noqa: E731
                 *t, is_causal=True)
-        row = dict(case=case, shape=[b, sq, h, hd], window=window,
+        row = dict(case=case, main_path=main,
+                   path="smollm" if main else "families",
+                   shape=[b, sq, h, hd], window=window,
                    max_abs_err=err, tol=tol, max_abs_err_bf16=err_b,
                    tol_bf16=tol_b, bf16_elementwise_worst=elem_b,
                    ms=time_ms(lambda: attn_flash(qb, kb, vb, **kw), 20, flush),
@@ -851,7 +913,7 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
                        qb, kb, vb, reference=True, **kw), 3, flush),
                    library_call="F.scaled_dot_product_attention bf16",
                    library_ms=time_ms(lib, 20, flush),
-                   prev_ms=ATTN_PREV_MS[case],
+                   prev_ms=ATTN_PREV_MS.get(case),
                    prev_ms_source=PREV_MS_SOURCE,
                    device_ops_per_call=device_ops(
                        "attn_flash", case,
@@ -862,12 +924,22 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
         print("KERNEL attn_flash", json.dumps(row), flush=True)
 
     p_tab = -(-(CONT_PROMPTS[1] + CONT_HORIZONS[1]) // CONT_PAGE)
-    for case, (b, s, idle, p, np_, full) in (
-            ("decode step", (CONT_SLOTS, 1, 1, p_tab, CONT_PAGES, False)),
-            ("prefill chunk", (1, CONT_PAGE, 0, p_tab, CONT_PAGES, False)),
+    smol, phi3 = (15, 5, 64), (32, 32, 96)
+    for case, (b, s, idle, p, np_, full), (hp, hkv, hd), path in (
+            ("decode step", (CONT_SLOTS, 1, 1, p_tab, CONT_PAGES, False),
+             smol, "smollm"),
+            ("prefill chunk", (1, CONT_PAGE, 0, p_tab, CONT_PAGES, False),
+             smol, "smollm"),
             ("decode step, 128-page tables",
-             (CONT_SLOTS, 1, 0, 128, CONT_SLOTS * 128 + 16, True))):
-        hp, hkv, hd = 15, 5, 64
+             (CONT_SLOTS, 1, 0, 128, CONT_SLOTS * 128 + 16, True), smol,
+             None),
+            ("phi3-mini decode step hd 96",
+             (CONT_SLOTS, 1, 1, p_tab, CONT_PAGES, False), phi3, "families"),
+            ("phi3-mini prefill chunk hd 96",
+             (1, CONT_PAGE, 0, p_tab, CONT_PAGES, False), phi3, "families"),
+            ("phi3-mini decode step hd 96, 128-page tables",
+             (CONT_SLOTS, 1, 0, 128, CONT_SLOTS * 128 + 16, True), phi3,
+             None)):
         q, pk, pv, ppos, table, q_pos = _paged_case(
             dev, gen, rs, b=b, s=s, hp=hp, hkv=hkv, hd=hd, ps=CONT_PAGE,
             np_=np_, p=p, idle=idle, full=full)
@@ -915,7 +987,8 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
         vg = args[2][tl].reshape(b, -1, hkv, hd)[:, :, idx].transpose(1, 2)
         qt = args[0].transpose(1, 2)
         mask = keep[:, None]
-        row = dict(case=case, main_path=not full, slots=b, rows=s,
+        row = dict(case=case, main_path=path == "smollm", path=path,
+                   slots=b, rows=s,
                    heads=[hp, hkv], head_dim=hd,
                    page_size=CONT_PAGE, table_pages=p, live_pages=n_live,
                    kept_pairs=pairs, max_abs_err=errs["float32"][0],
@@ -1288,11 +1361,13 @@ def dense_kernel_check() -> dict:
 
 
 def _hold_tokens(tag: str, got: np.ndarray, ref: np.ndarray,
-                 margins: np.ndarray) -> dict:
+                 margins: np.ndarray, tol: float | None = LM_MARGIN_TOL
+                 ) -> dict:
     """Greedy tokens of one request (or rows of a batch) against the
     oracle's: equal, or first different at a position whose oracle top-2
-    logit margin is under LM_MARGIN_TOL.  Later positions follow another
-    prefix and are not compared."""
+    logit margin is under ``tol`` (logit units).  Later positions follow
+    another prefix and are not compared.  ``tol=None`` reports each first
+    difference with its margin and fails on none."""
     got, ref = np.atleast_2d(got), np.atleast_2d(ref)
     margins = np.atleast_2d(margins)
     check(got.shape == ref.shape, f"{tag}: tokens {got.shape} vs {ref.shape}")
@@ -1303,11 +1378,30 @@ def _hold_tokens(tag: str, got: np.ndarray, ref: np.ndarray,
             continue
         t = int(diff[0])
         m = float(margins[r, t])
-        check(m < LM_MARGIN_TOL, f"{tag}: row {r} differs at position {t} "
-                                 f"where the oracle's top-2 margin is {m} "
-                                 f">= {LM_MARGIN_TOL}")
+        check(tol is None or m < tol, f"{tag}: row {r} differs at "
+              f"position {t} where the oracle's top-2 margin is {m} >= "
+              f"{tol}")
         div.append(dict(row=r, position=t, margin=m))
     return dict(positions=int(got.size), divergences=div)
+
+
+def _cont_payloads(rs: np.random.RandomState, vocab: int) -> list:
+    """CONT_REQUESTS (prompt, horizon) requests of the continuous mix."""
+    return [(rs.randint(0, vocab, rs.randint(
+        CONT_PROMPTS[0], CONT_PROMPTS[1] + 1)).astype(np.int32),
+        int(rs.randint(CONT_HORIZONS[0], CONT_HORIZONS[1] + 1)))
+        for _ in range(CONT_REQUESTS)]
+
+
+def _cont_engine(params, cfg, **kw):
+    """The continuous engine of the LM paths: CONT_SLOTS slots, pages of
+    CONT_PAGE, CONT_PAGES pages, room for the longest request."""
+    from repro_torch.launch.engine import ContinuousLMEngine
+
+    return ContinuousLMEngine(params, cfg, num_slots=CONT_SLOTS,
+                              page_size=CONT_PAGE, num_pages=CONT_PAGES,
+                              max_seq=CONT_PROMPTS[1] + CONT_HORIZONS[1],
+                              new_tokens=LM_NEW, **kw)
 
 
 def lm_main_path(card: str) -> dict:
@@ -1317,8 +1411,7 @@ def lm_main_path(card: str) -> dict:
     from repro_torch.configs import SINGLE, get_config
     from repro_torch.core.quant import W1A8
     from repro_torch.kernels import _lib
-    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
-                                           ServeEngine)
+    from repro_torch.launch.engine import LMRunner, ServeEngine
     from repro_torch.launch.serve import serve_once
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import prequantize_params
@@ -1334,17 +1427,8 @@ def lm_main_path(card: str) -> dict:
     rs = np.random.RandomState(3)
     prompts = [rs.randint(0, cfg.vocab, LM_PROMPT).astype(np.int32)
                for _ in range(LM_BATCH)]
-    payloads = [(rs.randint(0, cfg.vocab, rs.randint(
-        CONT_PROMPTS[0], CONT_PROMPTS[1] + 1)).astype(np.int32),
-        int(rs.randint(CONT_HORIZONS[0], CONT_HORIZONS[1] + 1)))
-        for _ in range(CONT_REQUESTS)]
-    max_seq = CONT_PROMPTS[1] + CONT_HORIZONS[1]
-
-    def cont_engine(**kw):
-        return ContinuousLMEngine(params, cfg, num_slots=CONT_SLOTS,
-                                  page_size=CONT_PAGE, num_pages=CONT_PAGES,
-                                  max_seq=max_seq, new_tokens=LM_NEW, **kw)
-
+    payloads = _cont_payloads(rs, cfg.vocab)
+    cont_engine = functools.partial(_cont_engine, params, cfg)
     bucket = ServeEngine(LMRunner(params, cfg, new_tokens=LM_NEW),
                          max_batch=LM_BATCH)
     cont = cont_engine()
@@ -1414,10 +1498,7 @@ def lm_main_path(card: str) -> dict:
                       reference=True)
     last_k, last_p = lk[:, -1, :cfg.vocab], lp[:, -1, :cfg.vocab]
     check(bool(torch.isfinite(last_k).all()), "prefill logits not finite")
-    prefill_logits = dict(
-        max_abs_diff=float((last_k - last_p).abs().max()),
-        max_abs_logit=float(last_p.abs().max()),
-        argmax_equal=bool(torch.equal(last_k.argmax(-1), last_p.argmax(-1))))
+    prefill_logits = _logit_gap(last_k.float(), last_p.float())
     del lk, lp
     phases["oracle_runs_s"] = time.perf_counter() - t0
 
@@ -1949,25 +2030,351 @@ def plan_phase(card: str, lm: dict) -> dict:
     return report
 
 
-def lm_profiles(params, cfg, layers, cont_engine) -> dict:
-    """One decode step of each LM engine under the profiler: the bucket
-    engine's (batch LM_BATCH at position LM_PROMPT, attention over the
-    full cache) and the continuous engine's (CONT_SLOTS slots, each past a
-    prompt of half the longest, 128 tokens).  Each step rewrites the same cache slot, so the
-    repeats do the same work."""
+def _tree_gb(tree) -> float:
+    if isinstance(tree, dict):
+        return sum(_tree_gb(v) for v in tree.values())
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def _family_run(arch: str, cut, prompt_len: int, new: int,
+                continuous: bool) -> dict:
+    """One architecture of the families phase (see ``families_phase``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
+                                           ServeEngine)
+    from repro_torch.launch.serve import make_prefill, serve_once
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import (prequantize_params,
+                                           resolve_attn_engine)
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), quant=W1A8)
+    full = cfg.n_layers
+    if cut:
+        cfg = dataclasses.replace(cfg, n_layers=cut)
+    out = dict(arch=arch, layers=cfg.n_layers, width=cfg.d_model,
+               batch=FAM_BATCH, prompt_len=prompt_len, new_tokens=new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(FAM_SEED),
+                       cfg, SINGLE)
+    blocks_gb = _tree_gb(params["blocks"])
+    out["params_gb"] = _tree_gb(params)
+    params = prequantize_params(params, cfg)
+    torch.cuda.synchronize()
+    out["init_and_prequantize_s"] = time.perf_counter() - t0
+    out["served_params_gb"] = _tree_gb(params)
+    if cut:
+        full_gb = out["params_gb"] + blocks_gb * (full / cut - 1)
+        out["reduced"] = {"n_layers": [full, cut], "why": (
+            f"float32 params at full depth, {full_gb:.1f} GB, do not fit "
+            f"beside the working set on the 80 GB card")}
+    attn_kinds = [k for k in dict.fromkeys(cfg.blocks_pattern)
+                  if k in T.ATTN_KINDS]
+    out["attention_engine"] = {k: resolve_attn_engine(
+        cfg, seq_q=prompt_len, seq_kv=prompt_len,
+        heads=SINGLE.padded_heads(cfg.n_heads), causal=True,
+        window=cfg.window if k == "attn_local" else None, qmode="serve")
+        for k in attn_kinds}
+    n_attn = sum(cfg.n_blocks_of(k) for k in attn_kinds)
+    rs = np.random.RandomState(FAM_SEED)
+    prompts = [rs.randint(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(FAM_BATCH)]
+    toks = torch.from_numpy(np.stack(prompts)).to(dev)
+    bucket = ServeEngine(LMRunner(params, cfg, new_tokens=new),
+                         max_batch=FAM_BATCH)
+    bucket.serve([prompts[0][:64]])                  # warm-up, not counted
+    torch.cuda.synchronize()
+    # ---- this architecture's bucket path, counted
+    d0 = bucket.stats["dispatches"]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = bucket.serve(prompts)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    # ----
+    disp = bucket.stats["dispatches"] - d0
+    want = {k: 0 for k in launches}
+    want["attn_flash"] = disp * sum(
+        cfg.n_blocks_of(k) for k, e in out["attention_engine"].items()
+        if e == "flash")
+    check(disp == 1, f"{arch}: {disp} bucket dispatches")
+    check(launches == want, f"{arch}: launches {launches} != {want}")
+    b_tok = np.stack([r.value for r in res])
+    check(b_tok.shape == (FAM_BATCH, new)
+          and bool(np.all((b_tok >= 0) & (b_tok < cfg.vocab))),
+          f"{arch}: bucket tokens {b_tok.shape} or outside the vocab")
+    del bucket
+
+    def last_logits(reference: bool) -> torch.Tensor:
+        logits, _ = make_prefill(params, cfg, SINGLE, "serve",
+                                 reference)(toks)
+        last = logits[:, -1, :cfg.vocab].float()
+        check(bool(torch.isfinite(last).all()), f"{arch}: prefill logits")
+        return last
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = last_logits(False)
+    prefill_s = time.perf_counter() - t0
+    plain_last = last_logits(True)
+    gap = _logit_gap(last, plain_last)
+    del last
+    out.update(
+        launches={k: v for k, v in launches.items() if v},
+        bucket_wall_s=wall, tokens_per_s=FAM_BATCH * new / wall,
+        prefill_ms=1e3 * prefill_s,
+        prefill_tokens_per_s=FAM_BATCH * prompt_len / prefill_s,
+        prefill_last_logits_vs_plain=gap)
+
+    def tokens(**kw):
+        return serve_once(params, cfg, SINGLE, toks, new, "serve",
+                          **kw)[0].cpu().numpy()
+
+    margins = []
+    ref_tok = tokens(reference=True, margins=margins)
+    margins = torch.stack(margins, dim=1).cpu().numpy()
+    if n_attn:
+        # each side run again: every difference sits where it sat
+        check(np.array_equal(tokens(reference=True), ref_tok),
+              f"{arch}: a second plain run's tokens differ from the first")
+        with _InContext() as ctx:
+            ctx_tok = tokens()
+        check(np.array_equal(ctx_tok, b_tok),
+              f"{arch}: the in-context run's tokens are not the bucket's")
+        # the witness: the plain version at another float order
+        with _plain_reordered():
+            re_tok = tokens(reference=True)
+            re_gap = _logit_gap(last_logits(True), plain_last)
+        check(gap["max_abs_diff"] <= FAM_GAP_FACTOR * re_gap["max_abs_diff"],
+              f"{arch}: the kernels move the prefill's last logits by "
+              f"{gap['max_abs_diff']}, over {FAM_GAP_FACTOR} x the "
+              f"reordered plain version's {re_gap['max_abs_diff']}")
+        out.update(
+            kernels_in_context=ctx.report(f"{arch} bucket"),
+            oracle=("serve_once on the same padded batch, attention "
+                    "kernels' plain versions; each side run twice, bit for "
+                    "bit"),
+            plain_reordered_vs_plain=dict(
+                prefill_last_logits=re_gap,
+                tokens=_hold_tokens(f"{arch} reordered plain vs plain",
+                                    re_tok, ref_tok, margins, None)))
+    else:
+        check(np.array_equal(b_tok, ref_tok), f"{arch}: the bucket's "
+              f"tokens are not serve_once's on the same batch")
+        out["oracle"] = ("serve_once on the same padded batch (no kernel "
+                         "on this path), bit for bit")
+    del plain_last
+    out["vs_plain"] = _hold_tokens(f"{arch} bucket vs plain", b_tok, ref_tok,
+                                   margins, None)
+    if continuous:
+        out["continuous"] = _family_continuous(arch, params, cfg)
+        out["profile_decode_step"] = bucket_step_profile(
+            params, cfg, T.unstack_layers(params, cfg), FAM_BATCH,
+            prompt_len, new)
+    elif set(cfg.blocks_pattern) != {"attn"}:
+        try:
+            ContinuousLMEngine(params, cfg, num_slots=2, page_size=CONT_PAGE,
+                               num_pages=8)
+        except ValueError as e:
+            out["continuous_refused"] = str(e)
+        check("continuous_refused" in out,
+              f"{arch}: ContinuousLMEngine took a non-'attn' pattern")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _logit_gap(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """(B, vocab) logits of a kernel run against the plain run's: the
+    largest difference, the plain logits' scale (max abs, and the standard
+    deviation over the vocab, averaged over rows) and whether the argmax
+    agrees."""
+    return dict(max_abs_diff=float((got - ref).abs().max()),
+                max_abs_logit=float(ref.abs().max()),
+                logit_std=float(ref.std(dim=-1).mean()),
+                argmax_equal=bool(torch.equal(got.argmax(-1),
+                                              ref.argmax(-1))))
+
+
+@contextlib.contextmanager
+def _plain_reordered():
+    """``attn_flash`` as its plain version at another float order (kv
+    blocks of 128 rows, not 512: another order of the online softmax's
+    sums), whatever the caller asks: an equally valid plain result."""
+    from repro_torch.kernels import attn_flash as A
+
+    orig = A.attn_flash
+    A.attn_flash = lambda q, k, v, reference=False, **kw: (
+        A.attn_flash_plain(q, k, v, block_kv=128, **kw))
+    try:
+        yield
+    finally:
+        A.attn_flash = orig
+
+
+def _family_continuous(arch, params, cfg) -> dict:
+    """The LM main path's continuous mix (CONT_REQUESTS requests, CONT_*
+    prompts, horizons and pages) through ``ContinuousLMEngine``: counted
+    and timed, then the same requests on the kernels' plain versions
+    (tokens and margins) and again on the kernels with every call held in
+    context (their tokens the counted run's, bit for bit); each request's
+    first difference from the plain run reported with its margin."""
+    from repro_torch.kernels import _lib
+
+    payloads = _cont_payloads(np.random.RandomState(FAM_SEED + 1),
+                              cfg.vocab)
+    eng = _cont_engine(params, cfg)
+    eng.serve([(payloads[0][0][:CONT_PAGE], 2)])     # warm-up, not counted
+    torch.cuda.synchronize()
+    c0, steps0 = eng.stats["dispatches"], eng.stats["steps"]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.serve(payloads)
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    disp = eng.stats["dispatches"] - c0
+    steps, pool = eng.stats["steps"] - steps0, eng.pool.stats()
+    del eng
+    want = {k: 0 for k in launches}
+    want["attn_paged"] = cfg.n_layers * disp
+    check(launches == want, f"{arch} continuous: launches {launches} != "
+                            f"{want}")
+    ref = _cont_engine(params, cfg, reference=True,
+                       record_margins=True).serve(payloads)
+    with _InContext() as ctx:
+        again = _cont_engine(params, cfg).serve(payloads)
+    held = dict(positions=0, divergences=[])
+    for i, (r, a, o) in enumerate(zip(res, again, ref)):
+        check(len(r.value) == payloads[i][1]
+              and bool(np.all((r.value >= 0) & (r.value < cfg.vocab))),
+              f"{arch} continuous request {i}: {len(r.value)} tokens or "
+              f"outside the vocab")
+        check(np.array_equal(r.value, a.value), f"{arch} continuous "
+              f"request {i}: the in-context run's tokens differ")
+        h = _hold_tokens(f"{arch} continuous request {i} vs plain", r.value,
+                         o.value, o.margins, None)
+        held["positions"] += h["positions"]
+        held["divergences"] += [dict(d, request=i) for d in h["divergences"]]
+    emitted = sum(len(r.value) for r in res)
+    lat = sorted(r.latency_s for r in res)
+    return dict(requests=CONT_REQUESTS, slots=CONT_SLOTS,
+                page_size=CONT_PAGE, pages=CONT_PAGES,
+                table_pages=-(-(CONT_PROMPTS[1] + CONT_HORIZONS[1])
+                              // CONT_PAGE),
+                prompt_tokens=sum(len(p[0]) for p in payloads),
+                emitted_tokens=emitted, dispatches=disp, steps=steps,
+                launches={k: v for k, v in launches.items() if v},
+                kernels_in_context=ctx.report(f"{arch} continuous"),
+                wall_s=wall, requests_per_s=CONT_REQUESTS / wall,
+                tokens_per_s=emitted / wall,
+                p50_latency_ms=1e3 * lat[len(lat) // 2],
+                p99_latency_ms=1e3 * lat[-1], pool=pool, vs_plain=held)
+
+
+class _InContext:
+    """Holds every ``attn_flash`` / ``attn_paged`` call a run makes
+    against the plain version on the same inputs (the model's own q, k,
+    v, pools and tables), within one bfloat16 rounding (ATTN_TOL_BF16 x
+    max|v|), while the run goes on with the kernel's output: the kernels
+    checked in context, where end-to-end tokens cannot separate a kernel
+    fault from the network's own sensitivity."""
+
+    def __init__(self):
+        from repro_torch.kernels import attn_flash as A
+
+        self.A, self.calls, self.worst = A, {}, 0.0
+        self.orig = (A.attn_flash, A.attn_paged)
+
+    def _wrap(self, name, fn, vpos):
+        def shadow(*args, **kw):
+            out = fn(*args, **kw)
+            ref = fn(*args, **dict(kw, reference=True))
+            v = args[vpos]
+            worst = float((out.float() - ref.float()).abs().max()) / (
+                ATTN_TOL_BF16 * float(v.float().abs().max()))
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.worst = max(self.worst, worst)
+            return out
+        return shadow
+
+    def __enter__(self):
+        self.A.attn_flash = self._wrap("attn_flash", self.orig[0], 2)
+        self.A.attn_paged = self._wrap("attn_paged", self.orig[1], 2)
+        return self
+
+    def __exit__(self, *exc):
+        self.A.attn_flash, self.A.attn_paged = self.orig
+
+    def report(self, tag: str) -> dict:
+        check(self.worst <= 1.0, f"{tag}: a kernel call in context is "
+                                 f"{self.worst} x its tolerance from its "
+                                 f"plain version")
+        return dict(calls=self.calls, worst_over_tol=self.worst)
+
+
+def families_phase(card: str) -> dict:
+    """The dense, MoE and recurrent architectures at W1A8, bf16, random
+    weights from FAM_SEED, one after another (each freed before the
+    next): a bucket of FAM_BATCH prompts through ``ServeEngine`` +
+    ``LMRunner`` (flash prefill on every attention layer at 2048 tokens;
+    RWKV-6 runs no kernel), phi3-mini's continuous mix through
+    ``ContinuousLMEngine`` (``attn_paged`` at hd 96) and one of its decode
+    steps under the profiler; launches checked, every kernel call held to
+    its plain version in context, each side's rerun bit for bit, the
+    prefill logits' gap held to the reordered plain version's
+    (FAM_GAP_FACTOR), the tokens compared with the plain run and
+    reported, the continuous engine's refusal of every other pattern
+    recorded.  One ``FAMILIES`` line."""
+    t_phase = time.perf_counter()
+    archs = []
+    for arch, cut, prompt_len, new, continuous in FAMILIES:
+        t0 = time.perf_counter()
+        r = _family_run(arch, cut, prompt_len, new, continuous)
+        r["seconds"] = time.perf_counter() - t0
+        print(f"FAMILY {arch} {r['seconds']:.1f} s", json.dumps(r),
+              flush=True)
+        archs.append(r)
+    report = dict(card=card, quant="w1a8", compute_dtype="bfloat16",
+                  archs=archs, seconds=time.perf_counter() - t_phase)
+    print("FAMILIES", json.dumps(report), flush=True)
+    return report
+
+
+def bucket_step_profile(params, cfg, layers, batch: int, prompt_len: int,
+                        new: int) -> dict:
+    """One bucket decode step (``batch`` rows at position ``prompt_len``,
+    attention over the full cache) under the profiler.  Each step rewrites
+    the same cache slot, so the repeats do the same work."""
     from repro_torch.configs import SINGLE
     from repro_torch.models import transformer as T
 
     dev = torch.device("cuda")
-    cache = T.init_cache(cfg, SINGLE, LM_BATCH, LM_PROMPT + LM_NEW,
-                         device=dev)
-    cache["attn"]["pos"][:, :, :LM_PROMPT] = torch.arange(
-        LM_PROMPT, dtype=torch.int32, device=dev)
-    tok = torch.ones((LM_BATCH, 1), dtype=torch.int32, device=dev)
-    out = {"bucket_decode_step": profile_forward(
-        lambda: T.decode_step(params, cache, tok, LM_PROMPT, cfg, SINGLE,
-                              layers=layers), 3)}
+    cache = T.init_cache(cfg, SINGLE, batch, prompt_len + new, device=dev)
+    if "attn" in cache:
+        cache["attn"]["pos"][:, :, :prompt_len] = torch.arange(
+            prompt_len, dtype=torch.int32, device=dev)
+    tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+    prof = profile_forward(lambda: T.decode_step(
+        params, cache, tok, prompt_len, cfg, SINGLE, layers=layers), 3)
     del cache
+    return prof
+
+
+def lm_profiles(params, cfg, layers, cont_engine) -> dict:
+    """One decode step of each LM engine under the profiler: the bucket
+    engine's (``bucket_step_profile`` at batch LM_BATCH, position
+    LM_PROMPT) and the continuous engine's (CONT_SLOTS slots, each past a
+    prompt of half the longest, 128 tokens).  Each step rewrites the same
+    cache slot, so the repeats do the same work."""
+    out = {"bucket_decode_step": bucket_step_profile(
+        params, cfg, layers, LM_BATCH, LM_PROMPT, LM_NEW)}
     eng = cont_engine()
     n = CONT_PROMPTS[1] // 2
     for i in range(CONT_SLOTS):
@@ -2040,7 +2447,8 @@ def profile_forward(fn, iters: int) -> dict:
                           calls_per_forward=e.count / iters) for e in top])
 
 
-def kernels_line(summary: dict, launches: dict) -> dict:
+def kernels_line(summary: dict, launches: dict, fam: dict | None = None
+                 ) -> dict:
     meta = {
         "fused_qgemm": ("src/repro_torch/csrc/fused_qgemm.cu",
                         "src/repro/kernels/fused_qgemm.py:134",
@@ -2096,9 +2504,17 @@ def kernels_line(summary: dict, launches: dict) -> dict:
         if (name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS
                 or name in BIT_MAX_DEVICE_OPS):
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
-                                               for r in timed)
+                                               for r in rows
+                                               if "device_ops_per_call" in r)
+        if fam is not None and name in ATTN_MAX_DEVICE_OPS:
+            entry["launches_families"] = {
+                a["arch"]: n for a in fam["archs"]
+                for n in [a["launches"].get(name, 0) + a.get(
+                    "continuous", {}).get("launches", {}).get(name, 0)]
+                if n}
         entry["shapes"] = [
-            {k: r[k] for k in ("model", "layer", "case", "main_path", "shape",
+            {k: r[k] for k in ("model", "layer", "case", "main_path", "path",
+                               "shape",
                                "a_bits", "form", "ms", "plain_ms",
                                "copy_ms", "bound_ms", "bound_by",
                                "popc_floor_ms",
@@ -2165,7 +2581,10 @@ def main() -> int:
     t0 = time.perf_counter()
     plan_phase(card, lm)
     print(f"PLAN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps(kernels_line(summary, launches)))
+    t0 = time.perf_counter()
+    fam = families_phase(card)
+    print(f"FAMILIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(kernels_line(summary, launches, fam)))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

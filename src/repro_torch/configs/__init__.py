@@ -1,7 +1,8 @@
 """Config registry: ``--arch <id>`` resolution.
 
 The reference knows ten architectures; the port has the ones whose blocks
-it runs.  The others raise, naming what is ported.
+it runs (the dense, MoE and recurrent families).  The others (the encoder
+and VLM families) raise, naming what is ported.
 """
 from __future__ import annotations
 
@@ -12,7 +13,11 @@ ARCH_IDS = [
     "deepseek-moe-16b", "granite-moe-3b-a800m", "rwkv6-1.6b",
     "recurrentgemma-9b", "internvl2-26b",
 ]
-PORTED_ARCH_IDS = ("smollm-360m",)
+PORTED_ARCH_IDS = (
+    "phi3-mini-3.8b", "yi-34b", "smollm-360m", "qwen3-32b",
+    "deepseek-moe-16b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+    "recurrentgemma-9b",
+)
 
 
 def get_config(arch_id: str):

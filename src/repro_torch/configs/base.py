@@ -1,10 +1,13 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-Only the dense family is ported: the fields its layers read, the derived
-sizes (``hd``, ``padded_vocab``, ``blocks_pattern``), ``smoke()`` for the
-CPU tests, and the single-device sharding plan with its head padding.
-The MoE, recurrent and modality fields of the reference wait for the
-slices that port those blocks.
+The dense, MoE and recurrent (RWKV-6, RG-LRU) families: the fields their
+layers read, the derived sizes (``hd``, ``padded_vocab``,
+``blocks_pattern``), ``smoke()`` for the CPU tests (reducing every field
+as the reference's does), and the single-device sharding plan with its
+head padding.  The modality fields (encoder frames, VLM patches) wait for
+the slice that ports those families.  The reference's shape cells
+(``ShapeCell``, ``SHAPES``, ``skip_shapes``) and its training and
+analysis toggles are left out: nothing in the port reads them.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ VOCAB_PAD = 256  # pad vocab to a multiple of this (divisible by TP=16)
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense (the only ported family)
+    family: str                     # dense | moe | rwkv | rglru
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,11 +36,23 @@ class ArchConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     causal: bool = True
-    window: Optional[int] = None
-    pattern: Tuple[str, ...] = ("attn",)
+    window: Optional[int] = None            # local-attention window (rglru)
+    pattern: Tuple[str, ...] = ("attn",)    # block pattern, tiled over n_layers
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
     # activations / norms
     act: str = "swiglu"                     # swiglu | gelu
     tie_embeddings: bool = False
+    # recurrent families
+    lru_width: Optional[int] = None
+    conv_width: int = 4
+    rwkv_head_dim: int = 64
+    lora_rank: int = 32
     # paper technique
     quant: QuantConfig = FP32
     # dtypes
@@ -59,6 +74,9 @@ class ArchConfig:
         reps = -(-self.n_layers // len(self.pattern))
         return tuple((list(self.pattern) * reps)[: self.n_layers])
 
+    def n_blocks_of(self, kind: str) -> int:
+        return sum(1 for b in self.blocks_pattern if b == kind)
+
     def smoke(self, **overrides) -> "ArchConfig":
         """Reduced same-family config for CPU tests (the reference's smoke
         geometry: float32 compute)."""
@@ -68,6 +86,12 @@ class ArchConfig:
             d_model=128, n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
             d_ff=256, head_dim=32, vocab=512,
+            n_experts=min(self.n_experts, 8),
+            top_k=min(self.top_k, 2),
+            expert_d_ff=64 if self.n_experts else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            lru_width=128 if self.lru_width else None,
+            lora_rank=8,
             window=min(self.window, 64) if self.window else None,
             compute_dtype=torch.float32,
         )

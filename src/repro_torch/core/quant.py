@@ -1,9 +1,13 @@
 """DoReFa low-bitwidth quantizers (port of ``repro/core/quant.py``).
 
-Only the serve-side views the CNN and LM slices need: the bit-width
-config, the integer-level views consumed by the level GEMM (unsigned for
-the CNN, affine-signed for transformer activations), and the float
-activation quantizer applied after each hidden CNN layer.  ``torch.round`` rounds half to
+The bit-width config, the integer-level views consumed by the level GEMM
+(unsigned for the CNN, affine-signed for transformer activations), the
+float activation quantizer applied after each hidden CNN layer, and the
+fake-quant (train-mode) forms the LM's float-weight projections take:
+:func:`quantize_weight` and :func:`fake_quant_act_signed`, whose forward
+value is the reference's straight-through ``x + (q - x)``, computed as
+written (it is not always ``q`` in float32).  There is no backward
+pass: the port serves.  ``torch.round`` rounds half to
 even, exactly as ``jnp.round`` does; the CUDA kernels use ``rintf`` (the
 same rounding), never ``roundf``.
 """
@@ -123,3 +127,41 @@ def activation_levels_signed_row(a: torch.Tensor, bits: int):
     s = torch.amax(torch.abs(a), dim=-1, keepdim=True) / z + 1e-12
     return (signed_levels(a, s, bits), s,
             torch.tensor(z, dtype=a.dtype, device=a.device))
+
+
+def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The forward value of the reference's straight-through estimator,
+    ``x + stop_gradient(q - x)``: two float roundings, as XLA computes
+    it."""
+    return x + (q - x)
+
+
+def quantize_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa weight quantizer (float output, the STE forward value).
+
+    1-bit:  ``sign(w) * mean|w|`` (XNOR-Net style scaled binarization);
+    k-bit:  ``2 * quantize_k(tanh(w) / (2 max|tanh(w)|) + 1/2) - 1``.
+    ``mean|w|`` is accumulated in float64 and rounded once, as in
+    :func:`weight_levels`."""
+    if bits >= 32:
+        return w
+    if bits == 1:
+        alpha = torch.mean(torch.abs(w), dtype=torch.float64).to(w.dtype)
+        return _ste(w, torch.where(w >= 0, alpha, -alpha))
+    t = torch.tanh(w)
+    t = t / (2.0 * torch.max(torch.abs(t)) + 1e-12) + 0.5
+    n = (1 << bits) - 1
+    return 2.0 * _ste(t, torch.round(t * n) / n) - 1.0
+
+
+def fake_quant_act_signed(a: torch.Tensor, bits: int) -> torch.Tensor:
+    """The float view of :func:`activation_levels_signed` (per-tensor
+    absmax), STE forward value: ``a + (q - a)`` with
+    ``q = (clip(round(a / s) + z, 0, 2^b - 1) - z) * s``."""
+    if bits >= 32:
+        return a
+    n = (1 << bits) - 1
+    z = float(1 << (bits - 1))
+    s = torch.max(torch.abs(a)) / z + 1e-12
+    q = (torch.clamp(torch.round(a / s) + z, 0, n) - z) * s
+    return _ste(a, q)

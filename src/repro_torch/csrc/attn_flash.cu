@@ -25,13 +25,22 @@
 // 2. attn_flash_klevels_kernel: each block reduces the partials to s_k and
 //    writes its share of K's int8 levels (K is read by every query tile,
 //    so it is quantized once).
-// 3. attn_flash_kernel, FlashAttention-2 in shape: a block of 4 warps owns
-//    64 query rows of one (batch, head), 16 per warp; it reduces the
+// 3. attn_flash_kernel, FlashAttention-2 in shape: a block owns 64 query
+//    rows of one (batch, head), 16 per row group of warps; it reduces the
 //    partials to the scales itself and quantizes its Q tile on load into
-//    int8 A fragments held in registers.  K-level and V tiles of 64 keys
+//    int8 A fragments held in registers.  K-level and V tiles of BK keys
 //    come into shared memory by double-buffered cp.async (zero-filled past
-//    Skv).  S = Q K^T runs on mma.sync m16n8k32 s8 x s8 -> s32: exact, the
-//    plain version's integer, then __fmul_rn by scale.  Masks apply only
+//    Skv).  Up to hd 128 a row group is one warp (4 warps, 64 keys a
+//    tile).  At hd 256 the 16 x 256 output accumulator would be 128 float
+//    registers a thread, so a row group is two warps that each own half
+//    of the output columns (8 warps); both compute the same scores and
+//    softmax (the score dot is the cheap int8 half), and a float32 V at hd
+//    256 takes tiles of 32 keys so its three bf16 parts fit shared memory.
+//    hd 96 is 3 k-steps of the score mma and 12 output column tiles, with
+//    112- and 208-byte row pitches that keep ldmatrix rows 16-byte
+//    aligned and conflict-free.  S = Q K^T runs on mma.sync m16n8k32
+//    s8 x s8 -> s32: exact, the plain version's integer, then __fmul_rn by
+//    scale.  Masks apply only
 //    on tiles that need them (the causal diagonal, the window's trailing
 //    edge, a ragged last tile); a masked logit is NEG_INF and its weight
 //    is 0, as the plain version multiplies by the mask.  The online
@@ -53,9 +62,7 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 128;    // 4 warps x 16 rows
+constexpr int BQ = 64;          // query rows per block (4 row groups of 16)
 constexpr int RED_THREADS = 256;
 constexpr int NPART = 2 * 132;  // blocks of the max|q|, max|k| reduction
 constexpr float NEG_INF = -1e30f;
@@ -181,10 +188,14 @@ __device__ __forceinline__ void split_bf16(float x, float y,
   }
 }
 
-// shared memory of attn_flash_kernel<HD, T>
+// tiling and shared memory of attn_flash_kernel<HD, T>
 template <int HD, typename T>
-struct Smem {
+struct Tile {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int WN = HD > 128 ? 2 : 1;        // warps a row group
+  static constexpr int THREADS = 128 * WN;
+  static constexpr int DN = HD / WN;                 // output columns a warp
+  static constexpr int BK = HD > 128 && F32 ? 32 : 64;  // keys per tile
   static constexpr int KP = HD + 16;                 // K-level row pitch
   static constexpr int VP = HD * sizeof(T) + 16;     // V row pitch, bytes
   static constexpr int BP = HD * 2 + 16;             // bf16 part row pitch
@@ -252,16 +263,18 @@ attn_flash_klevels_kernel(const T* __restrict__ k, int8_t* __restrict__ kc,
 }
 
 template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<HD, T>::THREADS)
 attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                   const T* __restrict__ v, T* __restrict__ out,
                   const float* __restrict__ part, int npart, int Sq, int Skv,
                   int H, int causal, int window, int q_bits, int k_bits,
                   float inv_sqrt_hd) {
-  using L = Smem<HD, T>;
+  using L = Tile<HD, T>;
+  constexpr int BK = L::BK, THREADS = L::THREADS, DN = L::DN;
   constexpr int NPP = L::F32 ? 3 : 2;   // bf16 parts of P
   constexpr int KS = HD / 32;            // k-steps of the score mma
-  constexpr int ND = HD / 8;             // 8-column output tiles
+  constexpr int ND = DN / 8;             // this warp's 8-column output tiles
+  constexpr int NJ = BK / 8;             // 8-key score tiles
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[THREADS / 32];
 
@@ -269,6 +282,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % 4, cn = warp / 4;  // row group, column group
   const int g = lane >> 2, tg = lane & 3;
 
   int kv_hi = Skv - 1;
@@ -325,7 +339,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   __syncthreads();
   unsigned qa[KS][4];
   {
-    const int8_t* qw = qs + warp * 16 * L::KP;
+    const int8_t* qw = qs + rw * 16 * L::KP;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int c = kk * 32 + tg * 4;
@@ -337,7 +351,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     }
   }
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + rw * 16 + g, r1 = r0 + 8;
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -372,9 +386,9 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     // S = Q K^T on the int8 tensor cores: exact int32
     const int8_t* kd =
         reinterpret_cast<const int8_t*>(smem + L::K_OFF) + buf * BK * L::KP;
-    int sacc[8][4];
+    int sacc[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
@@ -387,11 +401,11 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     const bool need_mask = (causal && k0 + BK - 1 > q0)
                            || (window > 0 && k0 <= q0 + BQ - 1 - window)
                            || k0 + BK > Skv;
-    float s[8][4];
+    float s[NJ][4];
     unsigned masked = 0u;
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = __fmul_rn(__int2float_rn(sacc[j][e]), scale);
@@ -431,7 +445,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
       o[n][3] *= c1;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p =
@@ -446,7 +460,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
 
     // O += P V on the bf16 tensor cores, P (and a float32 V) in bf16 parts
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       unsigned pa[NPP][4];
       {
         unsigned w0[NPP], w1[NPP], w2[NPP], w3[NPP];
@@ -465,8 +479,8 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
       const int mi = lane >> 3;
       const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
-        const int d = nd * 16 + (mi >> 1) * 8;
+      for (int nd = 0; nd < DN / 16; ++nd) {
+        const int d = cn * DN + nd * 16 + (mi >> 1) * 8;
         if constexpr (L::F32) {
 #pragma unroll
           for (int pv = 0; pv < 3; ++pv) {
@@ -500,13 +514,15 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   if (r0 < Sq) {
-    T* orow = out + ((static_cast<size_t>(b) * Sq + r0) * H + h) * HD + tg * 2;
+    T* orow = out + ((static_cast<size_t>(b) * Sq + r0) * H + h) * HD + cn * DN
+              + tg * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(orow + n * 8, __fdiv_rn(o[n][0], d0), __fdiv_rn(o[n][1], d0));
   }
   if (r1 < Sq) {
-    T* orow = out + ((static_cast<size_t>(b) * Sq + r1) * H + h) * HD + tg * 2;
+    T* orow = out + ((static_cast<size_t>(b) * Sq + r1) * H + h) * HD + cn * DN
+              + tg * 2;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(orow + n * 8, __fdiv_rn(o[n][2], d1), __fdiv_rn(o[n][3], d1));
@@ -546,7 +562,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   auto kern = attn_flash_kernel<HD, T>;
-  constexpr int smem = Smem<HD, T>::BYTES;
+  constexpr int smem = Tile<HD, T>::BYTES;
   static bool smem_set = false;
   if (smem > 48 * 1024 && !smem_set) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -554,7 +570,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
-  kern<<<dim3(B * H, (Sq + BQ - 1) / BQ), THREADS, smem, st>>>(
+  kern<<<dim3(B * H, (Sq + BQ - 1) / BQ), Tile<HD, T>::THREADS, smem, st>>>(
       tq, kc, static_cast<const T*>(v), static_cast<T*>(out), part, NPART, Sq,
       Skv, H, causal, window, q_bits, k_bits, inv_sqrt_hd);
   return static_cast<int>(cudaGetLastError());
@@ -594,8 +610,14 @@ extern "C" int attn_flash_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch_hd<64>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
                            causal, window, q_bits, k_bits, inv_sqrt_hd, st);
+    case 96:
+      return launch_hd<96>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
+                           causal, window, q_bits, k_bits, inv_sqrt_hd, st);
     case 128:
       return launch_hd<128>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
+                            causal, window, q_bits, k_bits, inv_sqrt_hd, st);
+    case 256:
+      return launch_hd<256>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
                             causal, window, q_bits, k_bits, inv_sqrt_hd, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

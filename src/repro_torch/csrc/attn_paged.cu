@@ -574,6 +574,10 @@ extern "C" int attn_paged_launch(const void* q, const void* pk, const void* pv,
       return launch_hd<64>(dtype, q, pk, pv, ppos, table, q_pos, scratch, out,
                            B, S, Hp, Hkv, ps, P, n_q, causal, window, bits,
                            inv_sqrt_hd, st);
+    case 96:
+      return launch_hd<96>(dtype, q, pk, pv, ppos, table, q_pos, scratch, out,
+                           B, S, Hp, Hkv, ps, P, n_q, causal, window, bits,
+                           inv_sqrt_hd, st);
     case 128:
       return launch_hd<128>(dtype, q, pk, pv, ppos, table, q_pos, scratch, out,
                             B, S, Hp, Hkv, ps, P, n_q, causal, window, bits,

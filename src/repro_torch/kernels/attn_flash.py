@@ -56,8 +56,13 @@ FLASH = "attn_flash"
 PAGED = "attn_paged"
 NEG_INF = -1e30
 
-# head dims csrc/attn_flash.cu and csrc/attn_paged.cu are instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# head dims csrc/attn_flash.cu is instantiated for (phi3-mini's 96,
+# recurrentgemma's 256 besides the powers of two)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# head dims csrc/attn_paged.cu is instantiated for: 256 is left to
+# ops.paged_attn_bounds, whose float32 worst case refuses it (a 16-row
+# block's two staged K and V tiles alone are 256 KB)
+PAGED_HEAD_DIMS = (32, 64, 96, 128)
 # shared memory one block may use on an H100 (227 KB)
 SMEM_LIMIT = 232448
 # key slots of one staged csrc/attn_paged.cu tile (its KT)
@@ -390,8 +395,8 @@ def _check_paged(q, pool_k, pool_v, ppos, table, q_pos, bits, n_q) -> None:
         raise TypeError(f"attn_paged: q and pools must share float32 or "
                         f"bfloat16, got {q.dtype}, {pool_k.dtype}, "
                         f"{pool_v.dtype}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attn_paged: head_dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if hd not in PAGED_HEAD_DIMS:
+        raise ValueError(f"attn_paged: head_dim {hd} not in {PAGED_HEAD_DIMS}")
     if not 1 <= bits <= 8:
         raise ValueError(f"attn_paged: bits must be 1..8, got {bits}")
 

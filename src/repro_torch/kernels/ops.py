@@ -545,7 +545,8 @@ def paged_attn_bounds(attn: AttnShape, batch: int = 1) -> tuple[bool, str]:
 
 def attn_engine_feasible(engine: str, attn: AttnShape) -> tuple[bool, str]:
     """Can ``engine`` realize this attention geometry on the port?"""
-    from .attn_flash import KERNEL_HEAD_DIMS, flash_levels_exact
+    from .attn_flash import (KERNEL_HEAD_DIMS, PAGED_HEAD_DIMS,
+                             flash_levels_exact)
 
     if engine == "banded":
         if not attn.window:
@@ -572,6 +573,9 @@ def attn_engine_feasible(engine: str, attn: AttnShape) -> tuple[bool, str]:
         if attn.quantized and not flash_levels_exact(attn.head_dim, 8, 8):
             return False, (f"paged score dot inexact at head_dim="
                            f"{attn.head_dim} (exceeds the fp32 mantissa)")
+        if attn.quantized and attn.head_dim not in PAGED_HEAD_DIMS:
+            return False, (f"the paged kernel takes head_dim in "
+                           f"{PAGED_HEAD_DIMS}, not {attn.head_dim}")
         return True, ""
     if engine in ("full", "chunked"):
         ok = attn.page_size is None

@@ -1,11 +1,14 @@
 """LM serving entry point: batched prefill + greedy decode over a KV cache (port
 of ``repro/launch/serve.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --quant w1a8 --batch 2 --prompt-len 16 --new-tokens 16 [--no-smoke]
 
-Runs on the card (``--device cuda``, the default) unless asked for the
-CPU.  Decode is a Python loop over tokens (the reference's one-trace
+Serves every ported arch (dense, MoE, RWKV-6, RecurrentGemma).  Runs on
+the card (``--device cuda``, the default) unless asked for the CPU.  A
+quantized ``--quant`` serves prequantized weights (``engine=serve``);
+``--quant w32a32`` or no ``--quant`` serves the float weights through
+the train-mode ``qdense`` (``engine=train``), as the reference does.  Decode is a Python loop over tokens (the reference's one-trace
 ``lax.scan``): each step runs the model once on the cache, which it
 updates in place.  ``--throughput`` drives the bucket engine
 (``launch/engine.ServeEngine`` + ``LMRunner``), ``--continuous`` the
@@ -34,14 +37,15 @@ from repro_torch.core.quant import PAPER_CONFIGS
 from repro_torch.models import transformer as T
 
 # cache tensors with a sequence axis (transformer.init_cache's layout:
-# (layers, batch, slots, ...)), identified by key, never by size
+# (layers, batch, slots, ...)), identified by key, never by size: the
+# recurrent state (rec h/conv, rwkv tm_x/cm_x/s) has no sequence axis
 CACHE_SEQ_AXIS = {"k": 2, "v": 2, "pos": 2}
 
 
 def grow_cache(cache, prompt_len: int, slots: int):
     """Grow a prefill cache to the decode horizon: new k/v slots are zero,
-    new ``pos`` entries -1 (empty).  Entries without ``pos`` pass
-    through."""
+    new ``pos`` entries -1 (empty).  Entries without ``pos`` (recurrent
+    state) pass through untouched, whatever their sizes."""
     out = {}
     for kind, entry in cache.items():
         if not (isinstance(entry, dict) and "pos" in entry):
@@ -278,7 +282,7 @@ def run_chaos(params, cfg, qmode: str, args, model_plan=None) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default="cuda",
@@ -328,18 +332,18 @@ def main(argv=None):
     if args.quant:
         cfg = dataclasses.replace(cfg, quant=PAPER_CONFIGS[args.quant])
     qmode = "serve" if args.quant and args.quant != "w32a32" else "train"
-    if qmode != "serve":
-        raise NotImplementedError("only the quantized serve path is ported "
-                                  "(pass --quant w1a8, w1a4, ...)")
+    if qmode == "train" and (args.plan_cache or args.autotune):
+        ap.error("--plan-cache/--autotune compile a plan of the quantized "
+                 "serve path: pass --quant (not w32a32)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     from repro_torch.models.layers import prequantize_params
 
     model_plan = None
+    params = T.init_lm(gen, cfg, SINGLE, device)
     if args.plan_cache or args.autotune:
         from repro_torch import api
 
-        compiled = api.build(cfg, params=T.init_lm(gen, cfg, SINGLE,
-                                                   device)).compile(
+        compiled = api.build(cfg, params=params).compile(
             batch_hints=(args.batch,), prompt_len=args.prompt_len,
             autotune=args.autotune, cache=args.plan_cache)
         model_plan = compiled.plan
@@ -351,8 +355,8 @@ def main(argv=None):
             print(f"plan: compiled{' +autotune' if args.autotune else ''} in "
                   f"{compiled.compile_s * 1e3:.1f}ms -> {compiled.cache_path}")
         params = model_plan.params
-    else:
-        params = prequantize_params(T.init_lm(gen, cfg, SINGLE, device), cfg)
+    elif qmode == "serve":
+        params = prequantize_params(params, cfg)
     # with a plan, every dispatch of the run is a lookup in its tables
     with (model_plan.activate() if model_plan is not None
           else contextlib.nullcontext()):
@@ -375,7 +379,7 @@ def _run(params, cfg, qmode: str, args, device, model_plan) -> None:
                               prefill_fn, generate_fn)
     _, dt_warm = serve_once(params, cfg, SINGLE, prompts, S_d, qmode,
                             prefill_fn, generate_fn)
-    print(f"arch={cfg.name} quant={args.quant} device={device} "
+    print(f"arch={cfg.name} quant={args.quant or 'fp'} device={device} "
           f"engine={qmode}")
     print(f"generated {B}x{S_d} tokens: cold {dt_cold:.2f}s "
           f"({B * S_d / dt_cold:.1f} tok/s incl. kernel builds), "

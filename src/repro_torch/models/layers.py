@@ -1,10 +1,13 @@
-"""Transformer layers of the dense LM serve path (port of the serve half of
-``repro/models/layers.py``).
+"""Transformer layers of the LM serve path (port of ``repro/models/layers.py``).
 
 Conventions follow the reference: activations ``(B, S, d)``, attention
 heads ``(B, S, H, hd)``, params as nested dicts of tensors.  Every
 projection is a :func:`qdense`: prequantized ``{"q", "s", "z"}`` weights
-run the signed level GEMM; float weights are a plain matmul on fp configs.
+run the signed level GEMM; float weights are the train-mode fake-quant
+product on quantized configs (the reference's serve path calls it for
+the weights its one-level-deep prequantization leaves float: RG-LRU's
+``wx``/``wy``, every RWKV-6 projection, the MoE's shared expert) and a
+plain matmul on fp configs.
 
 Attention engines: ``full`` (materialized logits), ``chunked`` (an
 online-softmax scan over padded KV chunks) and ``banded`` (block-diagonal
@@ -17,6 +20,10 @@ device.  Caches are updated in place (decode writes one slot of the
 contiguous cache; a paged step writes its valid rows into the pools),
 where the reference returns new arrays: the port holds one copy of the KV
 state.
+
+The MoE FFN (:func:`moe_fwd`) is the reference's token-choice top-k with
+capacity drops; its expert products are float einsums, as in the
+reference (no Pallas kernel there, none here).
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 
 from repro_torch.core.and_accum import (SIGNED_ENGINES,
                                         quant_dense_forward_signed_pre)
-from repro_torch.core.quant import QuantConfig, weight_levels
+from repro_torch.core.quant import (QuantConfig, fake_quant_act_signed,
+                                    quantize_weight, weight_levels)
 
 NEG_INF = -1e30
 PREQUANT_KEYS = {"wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out"}
@@ -38,11 +46,15 @@ PREQUANT_KEYS = {"wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out"}
 # ---------------------------------------------------------------------------
 
 def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
-           role: str = "mid") -> torch.Tensor:
-    """Dense layer on the serve path.  ``w`` prequantized
-    (``{"q": (K, N) int8 levels, "s": 0-d, "z": 0-d}``) runs the signed
-    level GEMM with the config's activation-scale mode; a float ``w`` is a
-    plain matmul on fp configs and on first/last layers kept fp."""
+           role: str = "mid", mode: str = "train") -> torch.Tensor:
+    """Dense layer.  ``w`` prequantized (``{"q": (K, N) int8 levels,
+    "s": 0-d, "z": 0-d}``) runs the signed level GEMM with the config's
+    activation-scale mode, whatever ``mode``.  A float ``w`` is a plain
+    matmul on fp configs and on first/last layers kept fp; otherwise
+    ``mode="train"`` is the fake-quant product (per-tensor signed
+    activation levels times the DoReFa weight, both in their float
+    straight-through form ``x + (q - x)``), and ``mode="serve"`` raises:
+    the port serves prequantized weights only."""
     if isinstance(w, dict):
         a_scale = "row" if quant.act_scale_mode == "row" else None
         return quant_dense_forward_signed_pre(
@@ -52,9 +64,12 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
     if quant.engine == "fp" or quant.w_bits >= 32 or (
             role in ("first", "last") and quant.first_last_fp):
         return x @ w.to(x.dtype)
-    raise ValueError("quantized serve takes prequantized weights: call "
-                     "prequantize_params first (the train-mode fake-quant "
-                     "path is not ported)")
+    if mode == "serve":
+        raise ValueError("serve-mode qdense takes prequantized weights: call "
+                         "prequantize_params first")
+    aq = fake_quant_act_signed(x, quant.a_bits)
+    wq = quantize_weight(w, quant.w_bits).to(x.dtype)
+    return aq @ wq
 
 
 def _signed_engine(x: torch.Tensor, n_out: int, quant: QuantConfig) -> str:
@@ -274,10 +289,6 @@ def attn_chunked(q, k, v, *, causal: bool, window: Optional[int], q_pos,
     return torch.cat(outs, dim=1)[:, :sq]
 
 
-def moe_fwd(*args, **kwargs):
-    raise NotImplementedError("moe_fwd (the MoE FFN) is not yet ported")
-
-
 def _head_mask(cfg, plan, dtype, device):
     hp = plan.padded_heads(cfg.n_heads)
     if hp == cfg.n_heads:
@@ -326,9 +337,9 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
     hkv = cfg.n_kv_heads
     causal = cfg.causal if causal is None else causal
     h = rms_norm(x, p["ln"])
-    q = qdense(h, p["wq"], cfg.quant).reshape(B, S, hp, hd)
-    k = qdense(h, p["wk"], cfg.quant).reshape(B, S, hkv, hd)
-    v = qdense(h, p["wv"], cfg.quant).reshape(B, S, hkv, hd)
+    q = qdense(h, p["wq"], cfg.quant, mode=qmode).reshape(B, S, hp, hd)
+    k = qdense(h, p["wk"], cfg.quant, mode=qmode).reshape(B, S, hkv, hd)
+    v = qdense(h, p["wv"], cfg.quant, mode=qmode).reshape(B, S, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -388,7 +399,7 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
     hm = _head_mask(cfg, plan, out.dtype, out.device)
     if hm is not None:
         out = out * hm[None, None, :, None]
-    out = qdense(out.reshape(B, S, hp * hd), p["wo"], cfg.quant)
+    out = qdense(out.reshape(B, S, hp * hd), p["wo"], cfg.quant, mode=qmode)
     return out, new_cache
 
 
@@ -448,17 +459,154 @@ def _paged_attn_fwd(q, k, v, cfg, rows, pool_k, pool_v, ppos, table, *,
 
 
 # ---------------------------------------------------------------------------
+# Activations, written as the reference's jax.nn functions compute them
+# ---------------------------------------------------------------------------
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` (``jax.nn.silu``): two roundings in a bf16
+    compute dtype, not torch's fused one."""
+    return x * torch.sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form), op for op."""
+    c = math.sqrt(2 / math.pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))``."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+# ---------------------------------------------------------------------------
+# Param init helpers (stacked: a leading axis of n layers)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen, shape, fan_in: int, device,
+               scale: float | None = None) -> torch.Tensor:
+    """N(0, 1) x ``scale`` (default ``1/sqrt(fan_in)``), float32."""
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, device=device).mul_(s)
+
+
+def init_attention(gen, cfg, plan, n: int, device) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    hp, hkv = plan.padded_heads(cfg.n_heads), cfg.n_kv_heads
+    p = {"ln": torch.ones((n, d), device=device),
+         "wq": dense_init(gen, (n, d, hp * hd), d, device),
+         "wk": dense_init(gen, (n, d, hkv * hd), d, device),
+         "wv": dense_init(gen, (n, d, hkv * hd), d, device),
+         "wo": dense_init(gen, (n, hp * hd, d), hp * hd, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((n, hd), device=device)
+        p["k_norm"] = torch.ones((n, hd), device=device)
+    return p
+
+
+def init_mlp(gen, cfg, n: int, device, d_ff: Optional[int] = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    p = {"ln": torch.ones((n, d), device=device),
+         "w_in": dense_init(gen, (n, d, ff), d, device)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = dense_init(gen, (n, d, ff), d, device)
+    p["w_out"] = dense_init(gen, (n, ff, d), ff, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeLU)
 # ---------------------------------------------------------------------------
 
-def mlp_fwd(p, x, cfg):
-    h = rms_norm(x, p["ln"])
-    up = qdense(h, p["w_in"], cfg.quant)
+def mlp_fwd(p, x, cfg, *, norm: bool = True, qmode: str = "train"):
+    h = rms_norm(x, p["ln"]) if norm else x
+    up = qdense(h, p["w_in"], cfg.quant, mode=qmode)
     if cfg.act == "swiglu":
-        gate = qdense(h, p["w_gate"], cfg.quant)
-        # silu as the reference writes it (x * sigmoid(x)): two roundings
-        # in a bf16 compute dtype, not torch's fused one
-        up = gate * torch.sigmoid(gate) * up
+        up = silu(qdense(h, p["w_gate"], cfg.quant, mode=qmode)) * up
     else:
-        up = torch.nn.functional.gelu(up, approximate="tanh")
-    return qdense(up, p["w_out"], cfg.quant)
+        up = gelu_tanh(up)
+    return qdense(up, p["w_out"], cfg.quant, mode=qmode)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts (token-choice top-k, capacity-based gather dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg, plan, n: int, device) -> dict:
+    d, E, eff = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    p = {"ln": torch.ones((n, d), device=device),
+         "router": dense_init(gen, (n, d, E), d, device),
+         "w1": dense_init(gen, (n, E, d, eff), d, device),
+         "wg": dense_init(gen, (n, E, d, eff), d, device),
+         "w2": dense_init(gen, (n, E, eff, d), eff, device)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, n, device,
+                               d_ff=eff * cfg.n_shared_experts)
+    return p
+
+
+def moe_route(p, h: torch.Tensor, cfg) -> dict:
+    """Routing of ``h`` (T, d), the normed tokens: the router's softmax,
+    top-k (ties to the lower expert index, as ``lax.top_k``), normalized
+    gates, each (token, k) slot's position in its expert's buffer (a
+    cumsum over the token-major (T*k) order, so which slots overflow the
+    capacity depends on that order) and ``keep`` (T*k,) = the slot is
+    within ``ceil(cf * T * k / E)`` slots of this call.  Also the
+    Switch-style load-balancing aux loss."""
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (h @ p["router"].to(h.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort keeps equal probabilities in index order
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = order.values[:, :k], order.indices[:, :k]
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(idx[:, 0], E).float().mean(dim=0)
+    aux = (me * ce).sum() * E * cfg.router_aux_coef
+    e_flat = idx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(e_flat, E)
+    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+    # capacity: at least 4 slots (tiny decode batches never drop), at most
+    # T (an expert receives a token at most once)
+    T = h.shape[0]
+    cap = min(T, max(int(math.ceil(cfg.capacity_factor * T * k / E)), 4))
+    return dict(gates=gates, idx=idx, e_flat=e_flat, pos=pos,
+                keep=pos < cap, capacity=cap, aux=aux)
+
+
+def moe_fwd(p, x, cfg):
+    """x (B,S,d) -> (out, aux_loss).  Capacity-dropped token-choice routing
+    with gather dispatch: each kept (token, k) slot's normed token goes to
+    row ``pos`` of its expert's (C, d) buffer, the experts' SwiGLU runs as
+    three float einsums over the (E, C, d) buffer, and each token sums its
+    k gated slot outputs in slot order (a (T, k, d) view summed over k,
+    deterministic on every device, as the reference's ``segment_sum``
+    adds them).  The shared experts (a train-mode :func:`mlp_fwd` on the
+    normed tokens) are added last."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    h = rms_norm(x.reshape(T, d), p["ln"])
+    r = moe_route(p, h, cfg)
+    keep, e_flat, pos = r["keep"], r["e_flat"], r["pos"]
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    cap = r["capacity"]
+    # dropped slots all land on a spare row past the capacity, cut off
+    # below (no host sync on the mask; kept slots are unique)
+    buf = h.new_zeros((E, cap + 1, d))
+    buf.index_put_((e_flat, torch.where(keep, pos, cap)), h[tok])
+    buf = buf[:, :cap]
+    up = torch.einsum("ecd,edf->ecf", buf, p["w1"].to(h.dtype))
+    gate = torch.einsum("ecd,edf->ecf", buf, p["wg"].to(h.dtype))
+    y_e = torch.einsum("ecf,efd->ecd", silu(gate) * up, p["w2"].to(h.dtype))
+    y_slots = y_e[torch.where(keep, e_flat, 0), torch.where(keep, pos, 0)]
+    y_slots = torch.where(keep[:, None], y_slots, 0.0)
+    contrib = (y_slots * r["gates"].reshape(-1).to(h.dtype)[:, None]
+               ).reshape(T, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    if cfg.n_shared_experts:
+        y = y + mlp_fwd(p["shared"], h, cfg, norm=False)
+    return y.reshape(B, S, d), r["aux"]

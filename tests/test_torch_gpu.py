@@ -504,7 +504,14 @@ def _assert_bf16_elementwise(got, ref32, v):
     (1, 200, 2, 128, True, None, None), (2, 256, 15, 64, True, 100, None),
     # Sq not a multiple of the 64-row tile; Sq < Skv (non-causal); hd 32
     (1, 100, 2, 32, True, None, None), (1, 70, 2, 64, False, None, 200),
-    (2, 130, 3, 32, True, 40, None)])
+    (2, 130, 3, 32, True, 40, None),
+    # hd 96 (phi3-mini): 3 score k-steps, 12 output column tiles
+    (2, 300, 3, 96, True, None, None), (1, 70, 2, 96, False, None, 200),
+    (1, 200, 2, 96, True, 64, None),
+    # hd 256 (recurrentgemma): two warps a row group, each half the
+    # columns; float32 V in 32-key tiles
+    (2, 300, 2, 256, True, None, None), (1, 70, 2, 256, False, None, 200),
+    (1, 200, 2, 256, True, 64, None)])
 def test_attn_flash_kernel_matches_plain(cuda_device, dtype, b, s, h, hd,
                                          causal, window, skv):
     gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
@@ -567,7 +574,11 @@ def _paged_case(device, gen, *, b, s, hp, hkv, hd, ps, np_, p, dtype,
     # a window across many splits; hd 128 over several splits
     (8, 1, 15, 5, 64, 300, 128, 0, None), (2, 1, 8, 2, 128, 64, 40, 0, None),
     # 6 rows x 5 query heads a KV head: head groups of 2, 2 and 1
-    (2, 6, 10, 2, 64, None, 9, 0, None)])
+    (2, 6, 10, 2, 64, None, 9, 0, None),
+    # hd 96 (phi3-mini, no GQA): a decode step and a prefill chunk
+    (8, 1, 32, 32, 96, None, 18, 1, None),
+    (1, 16, 32, 32, 96, None, 18, 0, None),
+    (2, 3, 6, 2, 96, 20, 40, 0, None)])
 def test_attn_paged_kernel_matches_plain(cuda_device, dtype, b, s, hp, hkv,
                                          hd, window, p, idle, pad_slot):
     gen = torch.Generator(device=cuda_device).manual_seed(b * 100 + s)
@@ -600,7 +611,8 @@ def test_attn_paged_plan(cuda_device, b, s, hp, hkv, p, want):
     """The kernel's launch plan: splits that cover the table with none
     empty, enough blocks to fill the card where the table allows it, the
     shared memory the CPU-side bound computes, and the scratch layout."""
-    for dtype, hd in ((torch.bfloat16, 64), (torch.float32, 128)):
+    for dtype, hd in ((torch.bfloat16, 64), (torch.float32, 128),
+                      (torch.bfloat16, 96)):
         nbytes, (hpb, ngroups, pps, nsplit, smem) = A.paged_plan(
             b, s, hp, hkv, hd, p, hp, dtype)
         assert (hpb, ngroups, pps, nsplit) == want
@@ -615,6 +627,28 @@ def test_attn_paged_plan(cuda_device, b, s, hp, hkv, p, want):
         rows = b * s * hp
         assert nbytes == 4 * (b * p + b + rows + (
             rows * nsplit * (2 + hd) if nsplit > 1 else 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [48, 256])
+def test_attention_kernels_refuse_head_dims_they_do_not_take(cuda_device,
+                                                            hd):
+    """A head_dim without a kernel instance raises on the card (never the
+    plain version): 48 for both kernels, 256 for the paged one (its
+    shared-memory bound refuses it too)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, pk, pv, ppos, table, q_pos = _paged_case(
+        cuda_device, gen, b=2, s=1, hp=2, hkv=1, hd=hd, ps=16, np_=8, p=2,
+        dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attn_paged(q, pk, pv, ppos, table, q_pos, quantized=True)
+    x = torch.randn((1, 64, 2, hd), device=cuda_device).bfloat16()
+    if hd not in A.KERNEL_HEAD_DIMS:
+        with pytest.raises(ValueError, match="head_dim"):
+            A.attn_flash(x, x, x)
+    ok, why = ops.paged_attn_bounds(ops.AttnShape(
+        seq_q=1, seq_kv=32, heads=16, head_dim=256, page_size=16))
+    assert not ok and "shared memory" in why
 
 
 @pytest.mark.gpu

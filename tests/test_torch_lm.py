@@ -135,12 +135,15 @@ def test_smoke_config_equals_reference_smoke():
     assert (default.d_model, default.n_heads, default.vocab) == (128, 4, 512)
 
 
-@pytest.mark.parametrize("arch", ["yi-34b", "deepseek-moe-16b", "rwkv6-1.6b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("arch,err,match", [
+    ("hubert-xlarge", NotImplementedError, "not yet ported"),
+    ("internvl2-26b", NotImplementedError, "not yet ported"),
+    ("no-such-arch", ValueError, "unknown arch")])
+def test_unported_archs_raise(arch, err, match):
+    """The encoder and VLM families are not ported; an unknown id is not
+    an arch."""
+    with pytest.raises(err, match=match):
         configs.get_config(arch)
-    with pytest.raises(ValueError):
-        configs.get_config("no-such-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -481,21 +484,24 @@ def test_cli_runs_on_cpu(capsys):
     serve.main(["--device", "cpu", "--quant", "w1a8", "--batch", "2",
                 "--prompt-len", "8", "--new-tokens", "3"])
     out = capsys.readouterr().out
-    assert "arch=smollm-360m-smoke quant=w1a8 device=cpu" in out
+    assert "arch=phi3-mini-3.8b-smoke quant=w1a8 device=cpu" in out
     assert "generated 2x3 tokens" in out
 
 
 @pytest.mark.parametrize("flag", [["--plan-cache"], ["--autotune"],
                                   ["--quant", "w32a32"]])
 def test_cli_unported_modes_raise(flag, tmp_path, capsys):
-    """The unquantized serve path is not ported and raises; LM plans
-    (``--plan-cache``, ``--autotune``) are, and serve the tokens of the
-    plan-free run."""
+    """Every serve mode runs: the unquantized path (``--quant w32a32``)
+    serves the float weights through the train-mode ``qdense``, as the
+    reference does; LM plans (``--plan-cache``, ``--autotune``) serve the
+    tokens of the plan-free run."""
     base = ["--device", "cpu", "--quant", "w1a8", "--batch", "2",
             "--prompt-len", "8", "--new-tokens", "3"]
     if flag == ["--quant", "w32a32"]:
-        with pytest.raises(NotImplementedError):
-            serve.main(base + flag)
+        serve.main(base + flag)
+        out = capsys.readouterr().out
+        assert "quant=w32a32 device=cpu engine=train" in out
+        assert "generated 2x3 tokens" in out
         return
     if flag == ["--plan-cache"]:
         flag = flag + [str(tmp_path / "lm")]
