@@ -131,8 +131,28 @@ Phases, each of which makes the script exit nonzero when it fails:
    the continuous engine refuses every other pattern; the ``KERNEL`` rows
    of phase 3 include ``attn_flash`` at hd 96 and 256 and ``attn_paged``
    at hd 96 (phi3's decode and chunk shapes, and 128-page tables);
-6. one JSON line listing the kernels (with the families phase's
-   launches), then the contract's last line.
+5e. the encoder and VLM families and the fleet simulator: one ``FAMILY``
+   line each for hubert-xlarge (full config, 48 layers: 2 x 2048 frames
+   of features from FAM_SEED through ``prefill(frame_feats=)``,
+   non-causal ``attn_flash`` at hd 80) and internvl2-26b (full width, 8
+   of 48 layers, ``reduced``: 2 prompts of 256 patches + 1792 tokens
+   through ``prefill(patch_embeds=, tokens=)``, then 8 greedy tokens
+   through ``decode_step``), W1A8, bf16: params GB, prefill ms, one
+   ``attn_flash`` per layer (48, 8), every kernel call in context, each
+   side rerun bit for bit, the logit gap (every frame's logits for
+   hubert, the prefill's last for internvl) at most FAM_GAP_FACTOR x the
+   reordered plain version's; per-frame argmax agreement and tokens vs
+   the plain run reported; the ``KERNEL attn_flash`` rows of phase 3
+   include both prefill shapes, (2, 2048, 16, 80) non-causal and (2,
+   2048, 48, 128) causal; then one ``FLEET`` line: the seeded 64-node
+   fleet study (``repro_torch.fleet``: harvest traces, the co-design
+   search, the fleet report), the same study in a fresh CPU-only
+   interpreter from the specs' JSON (reports byte-equal), and the
+   busiest node's outage schedule replayed through the port's
+   ResilientServeEngine on the card (``live_validation(device="cuda")``:
+   ok, integer deltas 0, float deltas within 1e-6), with host seconds;
+6. one JSON line listing the kernels (with the families' and the
+   modalities' launches), then the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
 The script imports nothing of JAX and nothing of the JAX package.
@@ -386,6 +406,30 @@ FAM_BATCH, FAM_SEED = 2, 7
 # them (``_plain_reordered``; 0.85-1.25x on the card).  RWKV-6 runs no
 # kernel: its bucket equals ``serve_once`` on the same batch bit for bit.
 FAM_GAP_FACTOR = 2.0
+# the encoder and VLM families (the modalities phase), with the families'
+# batch, seed and gates: hubert-xlarge at full config, FAM_BATCH x
+# MOD_FRAMES frames of features; internvl2-26b at full width and
+# MOD_VLM_LAYERS of its 48 layers (``reduced``: float32 params at full depth,
+# ~80 GB, do not fit), FAM_BATCH prompts of its n_patches patches and
+# MOD_TEXT text tokens (2048 positions: the flash route), then MOD_NEW
+# greedy tokens through prefill + decode_step
+MOD_FRAMES, MOD_VLM_LAYERS, MOD_TEXT, MOD_NEW = 2048, 8, 1792, 8
+# the fleet phase: the seeded fleet study of ``repro_torch.fleet`` (one
+# day of harvest traces, Table-I SLOs, the co-design search), repeated in
+# a fresh CPU-only interpreter from the specs' JSON; then the busiest
+# node's first FLEET_OUTAGES outages replayed through the port's
+# ResilientServeEngine on the card (``live_validation``)
+FLEET_NODES, FLEET_SEED, FLEET_SLO_SEED, FLEET_RESUME_US = 64, 0, 1, 26_000.0
+FLEET_REPLAY = dict(n_requests=8, new_tokens=7, epoch_steps=2, max_batch=4)
+FLEET_OUTAGES, FLEET_TOL = 6, 1e-6
+FLEET_CPU_RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.fleet import TraceSpec
+specs = [TraceSpec.from_json(d) for d in json.load(sys.stdin)]
+print(json.dumps(chip_smoke.fleet_study(specs)[0], sort_keys=True))
+"""
 
 
 class SmokeFailure(RuntimeError):
@@ -865,16 +909,24 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
     summary = {"attn_flash": [], "attn_paged": []}
     # the SmolLM main path's shapes, then the families phase's (phi3-mini's
     # hd 96 prefill, recurrentgemma's windowed hd 256 'attn_local' prefill)
-    for case, (b, sq, h, hd, window), main in (
-            ("bucket prefill", (LM_BATCH, LM_PROMPT, 15, 64, None), True),
-            ("window 256", (1, LM_PROMPT, 15, 64, 256), True),
+    # and the modalities phase's (hubert-xlarge's non-causal hd 80 prefill
+    # of 2048 frames, internvl2-26b's hd 128 prefill of 2048 positions)
+    for case, (b, sq, h, hd, window), causal, path in (
+            ("bucket prefill", (LM_BATCH, LM_PROMPT, 15, 64, None), True,
+             "smollm"),
+            ("window 256", (1, LM_PROMPT, 15, 64, 256), True, "smollm"),
             ("phi3-mini prefill hd 96", (FAM_BATCH, 2048, 32, 96, None),
-             False),
+             True, "families"),
             ("recurrentgemma attn_local prefill hd 256",
-             (FAM_BATCH, 2048, 16, 256, 2048), False)):
+             (FAM_BATCH, 2048, 16, 256, 2048), True, "families"),
+            ("hubert-xlarge prefill hd 80 non-causal",
+             (FAM_BATCH, MOD_FRAMES, 16, 80, None), False, "modalities"),
+            ("internvl2-26b prefill hd 128",
+             (FAM_BATCH, 2048, 48, 128, None), True, "modalities")):
+        main = path == "smollm"
         q, k, v = (torch.randn((b, sq, h, hd), generator=gen, device=dev)
                    for _ in range(3))
-        kw = dict(causal=True, window=window)
+        kw = dict(causal=causal, window=window)
         got, ref = attn_flash(q, k, v, **kw), attn_flash(q, k, v,
                                                          reference=True, **kw)
         torch.cuda.synchronize()
@@ -892,7 +944,7 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
             f"attn_flash {case}", got_b, attn_flash(
                 qb.float(), kb.float(), vb.float(), reference=True, **kw),
             float(vb.float().abs().max()))
-        pairs = b * h * _kept_pairs(sq, True, window)
+        pairs = b * h * _kept_pairs(sq, causal, window)
         nbytes = 4 * b * sq * h * hd * 2      # q, k, v in, out, bf16
         t = [x.transpose(1, 2).contiguous() for x in (qb, kb, vb)]
         if window:
@@ -901,11 +953,10 @@ def lm_kernel_phase(flush: torch.Tensor) -> dict:
             lib = lambda t=t, mask=mask: F.scaled_dot_product_attention(  # noqa: E731
                 *t, attn_mask=mask)
         else:
-            lib = lambda t=t: F.scaled_dot_product_attention(  # noqa: E731
-                *t, is_causal=True)
-        row = dict(case=case, main_path=main,
-                   path="smollm" if main else "families",
-                   shape=[b, sq, h, hd], window=window,
+            lib = lambda t=t, c=causal: F.scaled_dot_product_attention(  # noqa: E731
+                *t, is_causal=c)
+        row = dict(case=case, main_path=main, path=path,
+                   shape=[b, sq, h, hd], causal=causal, window=window,
                    max_abs_err=err, tol=tol, max_abs_err_bf16=err_b,
                    tol_bf16=tol_b, bf16_elementwise_worst=elem_b,
                    ms=time_ms(lambda: attn_flash(qb, kb, vb, **kw), 20, flush),
@@ -2036,35 +2087,28 @@ def _tree_gb(tree) -> float:
     return tree.numel() * tree.element_size() / 1e9
 
 
-def _family_run(arch: str, cut, prompt_len: int, new: int,
-                continuous: bool) -> dict:
-    """One architecture of the families phase (see ``families_phase``)."""
+def _served_model(arch: str, cut) -> tuple:
+    """``arch``'s config at W1A8 (``cut`` layers kept, or all) and its
+    params drawn on the card from FAM_SEED and prequantized.  Returns
+    ``(cfg, params, report)``: params GB drawn and served, init and
+    prequantize seconds and, for a cut, why it is ``reduced``."""
     import dataclasses
-    import gc
 
     from repro_torch.configs import SINGLE, get_config
     from repro_torch.core.quant import W1A8
-    from repro_torch.kernels import _lib
-    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
-                                           ServeEngine)
-    from repro_torch.launch.serve import make_prefill, serve_once
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import (prequantize_params,
-                                           resolve_attn_engine)
+    from repro_torch.models.layers import prequantize_params
 
-    dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(arch), quant=W1A8)
     full = cfg.n_layers
     if cut:
         cfg = dataclasses.replace(cfg, n_layers=cut)
-    out = dict(arch=arch, layers=cfg.n_layers, width=cfg.d_model,
-               batch=FAM_BATCH, prompt_len=prompt_len, new_tokens=new)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = T.init_lm(torch.Generator(device=dev).manual_seed(FAM_SEED),
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(FAM_SEED),
                        cfg, SINGLE)
     blocks_gb = _tree_gb(params["blocks"])
-    out["params_gb"] = _tree_gb(params)
+    out = dict(params_gb=_tree_gb(params))
     params = prequantize_params(params, cfg)
     torch.cuda.synchronize()
     out["init_and_prequantize_s"] = time.perf_counter() - t0
@@ -2074,6 +2118,27 @@ def _family_run(arch: str, cut, prompt_len: int, new: int,
         out["reduced"] = {"n_layers": [full, cut], "why": (
             f"float32 params at full depth, {full_gb:.1f} GB, do not fit "
             f"beside the working set on the 80 GB card")}
+    return cfg, params, out
+
+
+def _family_run(arch: str, cut, prompt_len: int, new: int,
+                continuous: bool) -> dict:
+    """One architecture of the families phase (see ``families_phase``)."""
+    import gc
+
+    from repro_torch.configs import SINGLE
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.engine import (ContinuousLMEngine, LMRunner,
+                                           ServeEngine)
+    from repro_torch.launch.serve import make_prefill, serve_once
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import resolve_attn_engine
+
+    dev = torch.device("cuda")
+    cfg, params, drawn = _served_model(arch, cut)
+    out = dict(arch=arch, layers=cfg.n_layers, width=cfg.d_model,
+               batch=FAM_BATCH, prompt_len=prompt_len, new_tokens=new,
+               **drawn)
     attn_kinds = [k for k in dict.fromkeys(cfg.blocks_pattern)
                   if k in T.ATTN_KINDS]
     out["attention_engine"] = {k: resolve_attn_engine(
@@ -2347,6 +2412,266 @@ def families_phase(card: str) -> dict:
     return report
 
 
+def _modality_run(arch: str, cut) -> dict:
+    """One architecture of the modalities phase (see ``modalities_phase``)."""
+    import gc
+
+    from repro_torch.configs import SINGLE
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import greedy_token, grow_cache, top2_margin
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import resolve_attn_engine
+
+    dev = torch.device("cuda")
+    cfg, params, drawn = _served_model(arch, cut)
+    seq = MOD_FRAMES if cfg.frame_input else cfg.n_patches + MOD_TEXT
+    out = dict(arch=arch, family=cfg.family, layers=cfg.n_layers,
+               width=cfg.d_model, head_dim=cfg.hd, causal=cfg.causal,
+               batch=FAM_BATCH, positions=seq, **drawn)
+    out["attention_engine"] = resolve_attn_engine(
+        cfg, seq_q=seq, seq_kv=seq, heads=SINGLE.padded_heads(cfg.n_heads),
+        causal=cfg.causal, window=None, qmode="serve")
+    check(out["attention_engine"] == "flash",
+          f"{arch}: the prefill routes {out['attention_engine']}, not flash")
+    rs = np.random.RandomState(FAM_SEED)
+    if cfg.frame_input:
+        inp = dict(frame_feats=torch.from_numpy(rs.randn(
+            FAM_BATCH, MOD_FRAMES, cfg.frame_dim).astype(np.float32)).to(dev))
+        out["inputs"] = f"frame_feats ({FAM_BATCH}, {MOD_FRAMES}, " \
+                        f"{cfg.frame_dim}) float32"
+    else:
+        inp = dict(patch_embeds=torch.from_numpy(rs.randn(
+            FAM_BATCH, cfg.n_patches, cfg.vit_dim).astype(np.float32)).to(dev),
+            tokens=torch.from_numpy(rs.randint(
+                0, cfg.vocab, (FAM_BATCH, MOD_TEXT)).astype(np.int32)).to(dev))
+        out["inputs"] = (f"patch_embeds ({FAM_BATCH}, {cfg.n_patches}, "
+                         f"{cfg.vit_dim}) float32 + tokens ({FAM_BATCH}, "
+                         f"{MOD_TEXT}), then {MOD_NEW} greedy tokens")
+    layers = T.unstack_layers(params, cfg)
+
+    def run(reference: bool = False, margins=None):
+        """The encoder: every frame's logits (B * T, vocab).  The VLM: the
+        prefill's last logits (B, vocab) and MOD_NEW greedy tokens, the
+        decode going on at position n_patches + MOD_TEXT."""
+        logits, cache = T.prefill(params, cfg, SINGLE, layers=layers,
+                                  reference=reference, **inp)
+        if cfg.frame_input:
+            got = logits[..., :cfg.vocab].float().reshape(-1, cfg.vocab)
+            check(bool(torch.isfinite(got).all()), f"{arch}: logits")
+            return got, None
+        last = logits[:, -1, :cfg.vocab].float()
+        check(bool(torch.isfinite(last).all()), f"{arch}: prefill logits")
+        tok = greedy_token(logits, cfg.vocab)
+        if margins is not None:
+            margins.append(top2_margin(logits, cfg.vocab))
+        del logits
+        cache = grow_cache(cache, seq, seq + MOD_NEW)
+        toks = [tok]
+        for i in range(MOD_NEW - 1):
+            lg, cache = T.decode_step(params, cache, tok, seq + i, cfg,
+                                      SINGLE, layers=layers,
+                                      reference=reference)
+            tok = greedy_token(lg, cfg.vocab)
+            toks.append(tok)
+            if margins is not None:
+                margins.append(top2_margin(lg, cfg.vocab))
+        return last, torch.cat(toks, dim=1)
+
+    run()                                            # warm-up, not counted
+    torch.cuda.synchronize()
+    # ---- this architecture's path, counted
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    got, got_tok = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    # ----
+    want = {k: 0 for k in launches}
+    want["attn_flash"] = cfg.n_blocks_of("attn")
+    check(launches == want, f"{arch}: launches {launches} != {want}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.prefill(params, cfg, SINGLE, layers=layers, **inp)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    # each side run again, bit for bit
+    again, again_tok = run()
+    margins = []
+    ref, ref_tok = run(reference=True, margins=margins)
+    ref2, ref2_tok = run(reference=True)
+    check(torch.equal(again, got) and torch.equal(ref2, ref),
+          f"{arch}: a rerun's logits differ from the first run's")
+    with _InContext() as ctx:
+        ctx_out, ctx_tok = run()
+    check(torch.equal(ctx_out, got), f"{arch}: the in-context run's logits "
+                                     f"are not the counted run's")
+    # the witness: the plain version at another float order
+    with _plain_reordered():
+        reo, reo_tok = run(reference=True)
+    gap, re_gap = _logit_gap(got, ref), _logit_gap(reo, ref)
+    check(gap["max_abs_diff"] <= FAM_GAP_FACTOR * re_gap["max_abs_diff"],
+          f"{arch}: the kernels move the logits by {gap['max_abs_diff']}, "
+          f"over {FAM_GAP_FACTOR} x the reordered plain version's "
+          f"{re_gap['max_abs_diff']}")
+    what = "every frame's logits" if cfg.frame_input else "the prefill's " \
+                                                          "last logits"
+    out.update(
+        launches={k: v for k, v in launches.items() if v},
+        wall_s=wall, prefill_ms=1e3 * prefill_s,
+        prefill_positions_per_s=FAM_BATCH * seq / prefill_s,
+        kernels_in_context=ctx.report(arch),
+        oracle=("the same entry points on the attention kernels' plain "
+                "versions; each side run twice, bit for bit"),
+        logits_compared=what, logits_vs_plain=gap,
+        plain_reordered_vs_plain=dict(logits=re_gap))
+    if cfg.frame_input:
+        agree = lambda a: float((a.argmax(-1) == ref.argmax(-1))  # noqa: E731
+                                .float().mean())
+        out["frame_argmax_agreement"] = agree(got)
+        out["plain_reordered_vs_plain"]["frame_argmax_agreement"] = agree(reo)
+    else:
+        check(torch.equal(again_tok, got_tok) and torch.equal(ref2_tok, ref_tok)
+              and torch.equal(ctx_tok, got_tok),
+              f"{arch}: a rerun's tokens differ from the first run's")
+        margins = torch.stack(margins, dim=1).cpu().numpy()
+        g, r = got_tok.cpu().numpy(), ref_tok.cpu().numpy()
+        check(g.shape == (FAM_BATCH, MOD_NEW)
+              and bool(np.all((g >= 0) & (g < cfg.vocab))),
+              f"{arch}: tokens {g.shape} or outside the vocab")
+        out["tokens_per_s"] = FAM_BATCH * MOD_NEW / wall
+        out["vs_plain"] = _hold_tokens(f"{arch} vs plain", g, r, margins,
+                                       None)
+        out["plain_reordered_vs_plain"]["tokens"] = _hold_tokens(
+            f"{arch} reordered plain vs plain", reo_tok.cpu().numpy(), r,
+            margins, None)
+    del params, layers, got, again, ref, ref2, ctx_out, reo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def modalities_phase(card: str) -> dict:
+    """The encoder and VLM families at W1A8, bf16, random weights from
+    FAM_SEED, one after the other: hubert-xlarge's 2048 frames a row
+    through ``prefill(frame_feats=)`` (non-causal ``attn_flash`` at hd 80
+    on all 48 layers) and internvl2-26b's 256 patches + 1792 tokens a row
+    through ``prefill(patch_embeds=, tokens=)`` and ``decode_step`` (8 of
+    48 layers, hd 128 after GQA expansion); launches checked, every
+    kernel call held to its plain version in context, each side's rerun
+    bit for bit, the logits' gap held to the reordered plain version's
+    (FAM_GAP_FACTOR), per-frame argmax agreement and tokens reported.
+    One ``FAMILY`` line each."""
+    archs = []
+    for arch, cut in (("hubert-xlarge", None),
+                      ("internvl2-26b", MOD_VLM_LAYERS)):
+        t0 = time.perf_counter()
+        r = _modality_run(arch, cut)
+        r["seconds"] = time.perf_counter() - t0
+        print(f"FAMILY {arch} {r['seconds']:.1f} s", json.dumps(r),
+              flush=True)
+        archs.append(r)
+    return dict(card=card, archs=archs)
+
+
+def fleet_study(specs) -> tuple:
+    """The seeded fleet study on ``specs`` (host only, a pure function of
+    them and the FLEET_* constants): traces, Table-I SLOs, frame costs
+    from structure-only plans, the co-design search and the fleet report.
+    Returns ``(report, traces, assignments, results)``."""
+    from repro_torch import fleet
+
+    traces = [fleet.make_trace(s) for s in specs]
+    out = fleet.codesign(traces, fleet.assign_slos(len(specs),
+                                                   seed=FLEET_SLO_SEED),
+                         costs=fleet.frame_cost_table(),
+                         node_kw=dict(resume_us=FLEET_RESUME_US))
+    results = out.pop("results")
+    report = dict(fleet=fleet.fleet_report(results, specs), codesign={
+        k: out[k] for k in ("inferences_per_day", "baseline",
+                            "win_vs_baseline", "slo_violations")})
+    return report, traces, out["assignments"], results
+
+
+def fleet_phase(card: str) -> dict:
+    """The fleet simulator: the seeded study of FLEET_NODES nodes, the same
+    study in a fresh CPU-only interpreter from the specs' JSON (reports
+    equal, byte for byte), then the busiest node's outage schedule,
+    compressed onto the replay's work, through the port's
+    ResilientServeEngine on the card (``live_validation(device="cuda")``:
+    integer counters exact, floats within FLEET_TOL of the simulator's
+    engine-accounting mirror).  One ``FLEET`` line."""
+    import shutil
+    import tempfile
+
+    from repro_torch import fleet
+
+    t0 = time.perf_counter()
+    specs = fleet.generate_fleet(FLEET_NODES, seed=FLEET_SEED)
+    report, traces, assignments, results = fleet_study(specs)
+    study_s = time.perf_counter() - t0
+    check(report["codesign"]["slo_violations"] == 0,
+          "fleet: a node misses its SLO")
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    cpu = subprocess.run(
+        [sys.executable, "-c", FLEET_CPU_RUN, ROOT], env=env, check=True,
+        input=json.dumps([s.to_json() for s in specs]), capture_output=True,
+        text=True, timeout=300).stdout.strip().splitlines()[-1]
+    cpu_s = time.perf_counter() - t0
+    check(cpu == json.dumps(report, sort_keys=True),
+          "fleet: the CPU-only run's report differs from the study's")
+    # the busiest node's outages, compressed onto ~80% of the replay's
+    # fault-free work so the kills land mid-decode
+    idx = max(range(len(results)), key=lambda i: results[i]["failures"])
+    a = assignments[idx]
+    e, lat = fleet.frame_cost_table(quants=(a["quant"],),
+                                    targets=(a["target"],))[(a["quant"],
+                                                             a["target"])]
+    node = fleet.NodeConfig(node_id=a["node_id"], quant=a["quant"],
+                            target=a["target"], period=a["period"],
+                            frame_energy_uj=e, frame_time_us=lat,
+                            resume_us=FLEET_RESUME_US)
+    outages = fleet.simulate_node(traces[idx], node,
+                                  collect_outages=FLEET_OUTAGES)[
+                                      "outage_frames"]
+    rp = FLEET_REPLAY
+    work = 0.8 * (-(-rp["n_requests"] // rp["max_batch"])) * (
+        0.25 + 1.0 + sum(fleet.epoch_schedule(rp["new_tokens"],
+                                              rp["epoch_steps"])))
+    sched = (fleet.rescale_outages(outages, outages[-1], work)
+             if outages else [])
+    check(len(sched) > 0, "fleet: the busiest node has no outage")
+    ckdir = tempfile.mkdtemp(prefix="fleet_val_")
+    t0 = time.perf_counter()
+    try:
+        v = fleet.live_validation(sched, checkpoint_dir=ckdir, tol=FLEET_TOL,
+                                  device="cuda", **rp)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    val_s = time.perf_counter() - t0
+    int_d = {k: v["deltas"][k] for k in fleet.sim._VALIDATE_INT_KEYS}
+    float_d = {k: v["deltas"][k] for k in v["deltas"] if k not in int_d}
+    check(v["ok"] and v["device"].startswith("cuda"),
+          f"fleet: live validation on the card failed: {v['deltas']}")
+    check(all(d == 0 for d in int_d.values())
+          and all(abs(d) <= FLEET_TOL for d in float_d.values()),
+          f"fleet: live validation deltas {v['deltas']}")
+    line = dict(card=card, nodes=FLEET_NODES, seed=FLEET_SEED,
+                report=report, cpu_run_equal=True,
+                validation=dict(node_id=a["node_id"], outages=len(sched),
+                                completed=v["completed"],
+                                dead_letters=v["dead_letters"],
+                                device=v["device"], measured=v["measured"],
+                                integer_deltas=int_d, float_deltas=float_d,
+                                efficiency_measured=v["efficiency_measured"],
+                                efficiency_predicted=v["efficiency_predicted"]),
+                host_s=dict(study=study_s, cpu_run=cpu_s, validation=val_s))
+    print("FLEET", json.dumps(line), flush=True)
+    return line
+
+
 def bucket_step_profile(params, cfg, layers, batch: int, prompt_len: int,
                         new: int) -> dict:
     """One bucket decode step (``batch`` rows at position ``prompt_len``,
@@ -2584,7 +2909,14 @@ def main() -> int:
     t0 = time.perf_counter()
     fam = families_phase(card)
     print(f"FAMILIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps(kernels_line(summary, launches, fam)))
+    t0 = time.perf_counter()
+    mod = modalities_phase(card)
+    print(f"MODALITIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fleet_phase(card)
+    print(f"FLEET PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(kernels_line(summary, launches, dict(
+        archs=fam["archs"] + mod["archs"]))))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

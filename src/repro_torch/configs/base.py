@@ -1,11 +1,11 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-The dense, MoE and recurrent (RWKV-6, RG-LRU) families: the fields their
-layers read, the derived sizes (``hd``, ``padded_vocab``,
-``blocks_pattern``), ``smoke()`` for the CPU tests (reducing every field
-as the reference's does), and the single-device sharding plan with its
-head padding.  The modality fields (encoder frames, VLM patches) wait for
-the slice that ports those families.  The reference's shape cells
+The dense, MoE, recurrent (RWKV-6, RG-LRU), encoder and VLM families:
+the fields their layers read (the encoder's frame input and the VLM's
+patch embeddings among them), the derived sizes (``hd``,
+``padded_vocab``, ``blocks_pattern``), ``smoke()`` for the CPU tests
+(reducing every field as the reference's does), and the single-device
+sharding plan with its head padding.  The reference's shape cells
 (``ShapeCell``, ``SHAPES``, ``skip_shapes``) and its training and
 analysis toggles are left out: nothing in the port reads them.
 """
@@ -24,7 +24,7 @@ VOCAB_PAD = 256  # pad vocab to a multiple of this (divisible by TP=16)
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | moe | rwkv | rglru
+    family: str                     # dense | moe | rwkv | rglru | encoder | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +48,11 @@ class ArchConfig:
     # activations / norms
     act: str = "swiglu"                     # swiglu | gelu
     tie_embeddings: bool = False
+    # modality stubs
+    n_patches: int = 0                      # vlm: vision tokens prepended
+    vit_dim: int = 0                        # vlm: stub patch-embedding dim
+    frame_input: bool = False               # audio: frame embeddings replace tokens
+    frame_dim: int = 0                      # audio: stub frame-feature dim
     # recurrent families
     lru_width: Optional[int] = None
     conv_width: int = 4
@@ -91,6 +96,9 @@ class ArchConfig:
             expert_d_ff=64 if self.n_experts else 0,
             n_shared_experts=min(self.n_shared_experts, 1),
             lru_width=128 if self.lru_width else None,
+            n_patches=16 if self.n_patches else 0,
+            vit_dim=64 if self.vit_dim else 0,
+            frame_dim=64 if self.frame_dim else 0,
             lora_rank=8,
             window=min(self.window, 64) if self.window else None,
             compute_dtype=torch.float32,

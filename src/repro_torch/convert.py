@@ -10,7 +10,9 @@ test can hold the port against the reference's own levels and scales.
 
 LM params (``lm_params_from_numpy``) keep the reference's tree: stacked
 per-layer blocks, each prequantized projection ``{"q": (L, K, N) int8
-levels, "s": (L,) float32, "z": (L,) float32}``, the rest float32.
+levels, "s": (L,) float32, "z": (L,) float32}``, the rest float32 — the
+encoder's ``frame_proj`` (its tree has no ``embed``) and the VLM's
+``vision_proj`` among them.
 
 A CNN or LM plan the reference's ``save_plan`` wrote is the port's second
 source of weights (:func:`plan_from_reference`).

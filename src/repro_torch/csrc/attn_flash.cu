@@ -38,7 +38,10 @@
 //    256 takes tiles of 32 keys so its three bf16 parts fit shared memory.
 //    hd 96 is 3 k-steps of the score mma and 12 output column tiles, with
 //    112- and 208-byte row pitches that keep ldmatrix rows 16-byte
-//    aligned and conflict-free.  S = Q K^T runs on mma.sync m16n8k32
+//    aligned and conflict-free.  hd 80 (hubert-xlarge) is 3 k-steps too,
+//    the last half of the third on Q fragments zeroed in registers (the
+//    level rows are padded to 96 columns, pitch 112), and 10 output
+//    column tiles with a 176-byte V pitch.  S = Q K^T runs on mma.sync m16n8k32
 //    s8 x s8 -> s32: exact, the plain version's integer, then __fmul_rn by
 //    scale.  Masks apply only
 //    on tiles that need them (the causal diagonal, the window's trailing
@@ -196,7 +199,8 @@ struct Tile {
   static constexpr int THREADS = 128 * WN;
   static constexpr int DN = HD / WN;                 // output columns a warp
   static constexpr int BK = HD > 128 && F32 ? 32 : 64;  // keys per tile
-  static constexpr int KP = HD + 16;                 // K-level row pitch
+  static constexpr int KS = (HD + 31) / 32;          // k-steps of the score
+  static constexpr int KP = KS * 32 + 16;            // K-level row pitch
   static constexpr int VP = HD * sizeof(T) + 16;     // V row pitch, bytes
   static constexpr int BP = HD * 2 + 16;             // bf16 part row pitch
   static constexpr int NVP = F32 ? 3 : 0;            // bf16 parts of f32 V
@@ -205,6 +209,18 @@ struct Tile {
   static constexpr int P_OFF = V_OFF + 2 * BK * VP;  // NVP x BK x BP
   static constexpr int Q_OFF = P_OFF + NVP * BK * BP;  // BQ x KP
   static constexpr int BYTES = Q_OFF + BQ * KP;
+  // A k-step reads 32 level columns a row.  At hd % 32 == 16 (hd 80) the
+  // last one reads 16 past hd: its Q fragments' upper half is zeroed in
+  // registers, so those columns add nothing (the centred levels need no
+  // other correction), and the reads stay inside the row pitch.  No other
+  // head dim may be instantiated: a k-step that stopped short of hd would
+  // drop columns of Q K^T.
+  static_assert(HD % 32 == 0 || HD % 32 == 16,
+                "the score k-steps must cover hd exactly or with one "
+                "zeroed half step");
+  static_assert(KS * 32 >= HD && KS * 32 <= KP,
+                "k-steps must cover hd within the row pitch");
+  static_assert(DN % 16 == 0, "P @ V takes 16 output columns at a time");
 };
 
 template <typename T>
@@ -272,7 +288,7 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   using L = Tile<HD, T>;
   constexpr int BK = L::BK, THREADS = L::THREADS, DN = L::DN;
   constexpr int NPP = L::F32 ? 3 : 2;   // bf16 parts of P
-  constexpr int KS = HD / 32;            // k-steps of the score mma
+  constexpr int KS = L::KS;              // k-steps of the score mma
   constexpr int ND = DN / 8;             // this warp's 8-column output tiles
   constexpr int NJ = BK / 8;             // 8-key score tiles
   extern __shared__ __align__(16) unsigned char smem[];
@@ -348,6 +364,10 @@ attn_flash_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
       qa[kk][2] = *reinterpret_cast<const unsigned*>(qw + g * L::KP + c + 16);
       qa[kk][3] =
           *reinterpret_cast<const unsigned*>(qw + (g + 8) * L::KP + c + 16);
+    }
+    if constexpr (HD % 32 == 16) {  // columns hd..hd+15: not part of q
+      qa[KS - 1][2] = 0u;
+      qa[KS - 1][3] = 0u;
     }
   }
 
@@ -609,6 +629,9 @@ extern "C" int attn_flash_launch(const void* q, const void* k, const void* v,
                            causal, window, q_bits, k_bits, inv_sqrt_hd, st);
     case 64:
       return launch_hd<64>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
+                           causal, window, q_bits, k_bits, inv_sqrt_hd, st);
+    case 80:
+      return launch_hd<80>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,
                            causal, window, q_bits, k_bits, inv_sqrt_hd, st);
     case 96:
       return launch_hd<96>(dtype, q, k, v, out, scratch, B, Sq, Skv, H,

@@ -56,9 +56,9 @@ FLASH = "attn_flash"
 PAGED = "attn_paged"
 NEG_INF = -1e30
 
-# head dims csrc/attn_flash.cu is instantiated for (phi3-mini's 96,
-# recurrentgemma's 256 besides the powers of two)
-KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# head dims csrc/attn_flash.cu is instantiated for (hubert-xlarge's 80,
+# phi3-mini's 96, recurrentgemma's 256 besides the powers of two)
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 # head dims csrc/attn_paged.cu is instantiated for: 256 is left to
 # ops.paged_attn_bounds, whose float32 worst case refuses it (a 16-row
 # block's two staged K and V tiles alone are 256 KB)

@@ -226,7 +226,7 @@ class LMRunner:
         self.qmode = qmode
         self.plan = plan or SINGLE
         self.reference = reference
-        self.device = params["embed"].device
+        self.device = params["final_norm"].device
         self._prefill = make_prefill(params, cfg, self.plan, qmode, reference)
         self._generate: dict = {}   # (prompt_len, horizon) -> decode loop
         self._fp = None
@@ -541,7 +541,7 @@ class ContinuousLMEngine(_SubmitRetryMixin):
         self.table_pages = pages_needed(self.max_seq, page_size)
         self.num_pages = num_pages
         self.params = params
-        self.device = params["embed"].device
+        self.device = params["final_norm"].device
         self._plan_fp = None     # set with checkpoint_dir
         self._layers = T.unstack_layers(params, cfg)
         self.dead_letters: list[dict] = []

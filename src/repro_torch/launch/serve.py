@@ -4,7 +4,11 @@ of ``repro/launch/serve.py``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --quant w1a8 --batch 2 --prompt-len 16 --new-tokens 16 [--no-smoke]
 
-Serves every ported arch (dense, MoE, RWKV-6, RecurrentGemma).  Runs on
+Serves the token-input archs (dense, MoE, RWKV-6, RecurrentGemma, and
+the VLM on text alone, as the reference's CLI does); hubert-xlarge takes
+frame features, which only ``models.transformer.prefill(frame_feats=)``
+takes, so its prefill raises a ``ValueError`` naming that call (the
+reference's CLI fails on it too).  Runs on
 the card (``--device cuda``, the default) unless asked for the CPU.  A
 quantized ``--quant`` serves prequantized weights (``engine=serve``);
 ``--quant w32a32`` or no ``--quant`` serves the float weights through

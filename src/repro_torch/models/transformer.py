@@ -1,11 +1,15 @@
 """The LM of the serve path (port of ``repro/models/transformer.py``): the
-dense, MoE and recurrent families.
+dense, MoE, recurrent, encoder and VLM families.
 
 A model is a block pattern (``cfg.pattern``) tiled over ``n_layers``:
   dense    -> ('attn',)                  attention + MLP
   moe      -> ('moe',)                   attention + MoE FFN (+ shared)
   rwkv     -> ('rwkv',)                  RWKV-6 time mix + channel mix
   rglru    -> ('rec','rec','attn_local') RecurrentGemma 2:1 pattern
+  encoder  -> ('attn',), non-causal, frame features projected in place
+              of token embeddings (``frame_feats``; no ``embed``)
+  vlm      -> ('attn',), patch embeddings projected and prepended to the
+              text (``patch_embeds``); decode goes on at n_patches + S
 Params keep the reference's layout — one stacked tree per block kind,
 leading axis the layer within that kind (recurrentgemma's 38 layers are
 26 'rec' and 12 'attn_local') — and the layer stack is a plain Python
@@ -31,7 +35,7 @@ from .layers import (attention_fwd, dense_init, init_attention, init_mlp,
 
 ATTN_KINDS = ("attn", "moe", "attn_local")
 BLOCK_KINDS = ATTN_KINDS + ("rec", "rwkv")
-PORTED_FAMILIES = ("dense", "moe", "rwkv", "rglru")
+PORTED_FAMILIES = ("dense", "moe", "rwkv", "rglru", "encoder", "vlm")
 
 
 def _init_kind(kind: str, gen, cfg, plan, n: int, device) -> dict:
@@ -52,21 +56,29 @@ def _init_kind(kind: str, gen, cfg, plan, n: int, device) -> dict:
 def init_lm(gen: torch.Generator, cfg, plan, device=None) -> dict:
     """Random params in the reference's layout: one stacked tree per block
     kind (kinds in order of first occurrence), N(0, 1/fan_in) projection
-    weights, unit norm scales, the embedding x0.02, all float32, drawn
-    from ``gen`` on ``device`` (default: the generator's)."""
+    weights, unit norm scales, the embedding x0.02 (``frame_proj`` in its
+    place for frame input, and ``vision_proj`` where the config has
+    patches), all float32, drawn from ``gen`` on ``device`` (default: the
+    generator's)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
     device = device or gen.device
     d = cfg.d_model
     blocks = {kind: _init_kind(kind, gen, cfg, plan, cfg.n_blocks_of(kind),
                                device)
               for kind in dict.fromkeys(cfg.blocks_pattern)}
-    params: dict[str, Any] = {
-        "embed": torch.randn((cfg.padded_vocab, d), generator=gen,
-                             device=device).mul_(0.02),
-        "final_norm": torch.ones((d,), device=device),
-        "blocks": blocks,
-    }
+    params: dict[str, Any] = {}
+    if cfg.frame_input:
+        params["frame_proj"] = dense_init(gen, (cfg.frame_dim, d),
+                                          cfg.frame_dim, device)
+    else:
+        params["embed"] = torch.randn((cfg.padded_vocab, d), generator=gen,
+                                      device=device).mul_(0.02)
+    if cfg.n_patches:
+        params["vision_proj"] = dense_init(gen, (cfg.vit_dim, d),
+                                           cfg.vit_dim, device)
+    params["final_norm"] = torch.ones((d,), device=device)
+    params["blocks"] = blocks
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.padded_vocab), d, device,
                                        scale=0.02)
@@ -249,8 +261,28 @@ def run_blocks(params, h, cfg, plan, *, mode: str, pos_offset=0, cache=None,
     return h, cache
 
 
-def embed_inputs(params, cfg, tokens) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+def embed_inputs(params, cfg, tokens=None, patch_embeds=None,
+                 frame_feats=None) -> torch.Tensor:
+    """The input sequence in the compute dtype: token embeddings, or for
+    frame input ``frame_feats @ frame_proj`` (the features in their own
+    dtype against the projection in the compute dtype, promoted as the
+    reference's matmul promotes); with patches, ``patch_embeds @
+    vision_proj`` in the compute dtype, prepended."""
+    cd = cfg.compute_dtype
+    if cfg.frame_input:
+        if frame_feats is None:
+            raise ValueError(
+                f"{cfg.name} takes frame features, not tokens: call "
+                f"prefill(frame_feats=(B, T, {cfg.frame_dim}))")
+        w = params["frame_proj"].to(cd)
+        ct = torch.promote_types(frame_feats.dtype, cd)
+        h = (frame_feats.to(ct) @ w.to(ct)).to(cd)
+    else:
+        h = params["embed"][tokens.long()].to(cd)
+    if cfg.n_patches and patch_embeds is not None:
+        vis = patch_embeds.to(cd) @ params["vision_proj"].to(cd)
+        h = torch.cat([vis, h], dim=1)
+    return h
 
 
 def unembed(params, cfg, h) -> torch.Tensor:
@@ -262,11 +294,13 @@ def unembed(params, cfg, h) -> torch.Tensor:
     return logits.float()
 
 
-def forward(params, cfg, plan, *, tokens, mode: str = "prefill", cache=None,
+def forward(params, cfg, plan, *, tokens=None, patch_embeds=None,
+            frame_feats=None, mode: str = "prefill", cache=None,
             pos_offset=0, qmode: str = "serve", valid_len=None, layers=None,
             reference: bool = False):
-    """Full forward -> ``(logits float32 (B, S, padded_vocab), cache)``."""
-    h = embed_inputs(params, cfg, tokens)
+    """Full forward -> ``(logits float32 (B, S, padded_vocab), cache)``;
+    S counts the prepended patches."""
+    h = embed_inputs(params, cfg, tokens, patch_embeds, frame_feats)
     h, new_cache = run_blocks(params, h, cfg, plan, mode=mode,
                               pos_offset=pos_offset, cache=cache, qmode=qmode,
                               valid_len=valid_len, layers=layers,
@@ -274,16 +308,20 @@ def forward(params, cfg, plan, *, tokens, mode: str = "prefill", cache=None,
     return unembed(params, cfg, h), new_cache
 
 
-def prefill(params, cfg, plan, *, tokens, qmode: str = "serve", layers=None,
+def prefill(params, cfg, plan, *, tokens=None, patch_embeds=None,
+            frame_feats=None, qmode: str = "serve", layers=None,
             reference: bool = False):
-    return forward(params, cfg, plan, tokens=tokens, mode="prefill",
-                   qmode=qmode, layers=layers, reference=reference)
+    return forward(params, cfg, plan, tokens=tokens,
+                   patch_embeds=patch_embeds, frame_feats=frame_feats,
+                   mode="prefill", qmode=qmode, layers=layers,
+                   reference=reference)
 
 
 def decode_step(params, cache, token, pos: int, cfg, plan,
                 qmode: str = "serve", layers=None, reference: bool = False):
-    """One token step: token (B, 1), ``pos`` a Python int.  Writes the
-    cache in place -> ``(logits, cache)``."""
+    """One token step: token (B, 1), ``pos`` a Python int (after a VLM
+    prefill with patches, ``n_patches + S``).  Writes the cache in place
+    -> ``(logits, cache)``."""
     return forward(params, cfg, plan, tokens=token, mode="decode",
                    cache=cache, pos_offset=pos, qmode=qmode, layers=layers,
                    reference=reference)

@@ -203,7 +203,8 @@ def test_paper_cnn_config_equals_reference():
 
 
 def test_every_family_arch_is_ported():
-    assert set(ARCHS) | {"smollm-360m"} == set(configs.PORTED_ARCH_IDS)
+    assert set(ARCHS) | {"smollm-360m", "hubert-xlarge", "internvl2-26b"} \
+        == set(configs.PORTED_ARCH_IDS) == set(jconfigs.ARCH_IDS)
 
 
 # ---------------------------------------------------------------------------

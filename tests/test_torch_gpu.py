@@ -508,6 +508,10 @@ def _assert_bf16_elementwise(got, ref32, v):
     # hd 96 (phi3-mini): 3 score k-steps, 12 output column tiles
     (2, 300, 3, 96, True, None, None), (1, 70, 2, 96, False, None, 200),
     (1, 200, 2, 96, True, 64, None),
+    # hd 80 (hubert-xlarge, non-causal): 3 score k-steps, the last half of
+    # the third on zeroed Q columns; 10 output column tiles
+    (2, 300, 3, 80, False, None, None), (1, 70, 2, 80, False, None, 200),
+    (2, 300, 3, 80, True, None, None), (1, 200, 2, 80, True, 64, None),
     # hd 256 (recurrentgemma): two warps a row group, each half the
     # columns; float32 V in 32-key tiles
     (2, 300, 2, 256, True, None, None), (1, 70, 2, 256, False, None, 200),

@@ -136,12 +136,10 @@ def test_smoke_config_equals_reference_smoke():
 
 
 @pytest.mark.parametrize("arch,err,match", [
-    ("hubert-xlarge", NotImplementedError, "not yet ported"),
-    ("internvl2-26b", NotImplementedError, "not yet ported"),
     ("no-such-arch", ValueError, "unknown arch")])
 def test_unported_archs_raise(arch, err, match):
-    """The encoder and VLM families are not ported; an unknown id is not
-    an arch."""
+    """Every arch of the reference is ported; an unknown id is not an
+    arch."""
     with pytest.raises(err, match=match):
         configs.get_config(arch)
 
