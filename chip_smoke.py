@@ -109,6 +109,26 @@ Phases, each of which makes the script exit nonzero when it fails:
    after a save and ``api.load``, 32 ``attn_flash`` launches per bucket
    prefill, and ``compile_lm(autotune=True)``'s ``f32dot``/``int8`` times
    at the four shapes; every CNN kernel and ``attn_flash`` launch;
+5c2. static verification, one ``ANALYSIS`` line: every plan the script
+   compiles (or reloads) is proven as it is compiled (``verify=True``,
+   the default; PV101-PV108 against the Hopper kernels' bounds): the
+   count, their violations (must be 0) and ``verify_plan`` ms for the
+   SmolLM-360M plan and the largest families plan (each family's plan is
+   compiled here at full width, one pattern period deep: a plan has one
+   row per GEMM shape and attention geometry, whatever the depth); the
+   svhn, AlexNet and SmolLM-360M W1A8 plans saved and proven by
+   ``python -m repro_torch.analysis check-plan`` in a subprocess (exit
+   0), an AlexNet artifact hand-edited (fc6 pinned to ``implicit``)
+   refused by it (exit 1, PV103) and by ``compile(cache=...)``
+   (``PlanVerificationError``, no launch); at each boundary of the
+   prover (``fused_qgemm`` W8A8 int32 K, ``int8_matmul``'s s8 K,
+   ``conv_implicit``'s shared memory, ``attn_flash``'s head dims,
+   ``attn_paged``'s shared memory) the shape just inside is proven, its
+   kernel launches and equals its plain version (bit for bit for the
+   integer kernels), and the shape just outside is refused by the prover
+   and by the kernel's wrapper before any launch; ``python -m
+   repro_torch.analysis lint src/repro_torch chip_smoke.py`` exits 0 with
+   RL004 proving the twelve ctypes launchers against ``csrc``;
 5d. the dense, MoE and recurrent architectures, one ``FAMILIES`` line
    (W1A8, bf16, random weights from FAM_SEED, each model freed before the
    next): phi3-mini-3.8b, granite-moe-3b-a800m, recurrentgemma-9b and
@@ -422,6 +442,18 @@ MOD_FRAMES, MOD_VLM_LAYERS, MOD_TEXT, MOD_NEW = 2048, 8, 1792, 8
 FLEET_NODES, FLEET_SEED, FLEET_SLO_SEED, FLEET_RESUME_US = 64, 0, 1, 26_000.0
 FLEET_REPLAY = dict(n_requests=8, new_tokens=7, epoch_steps=2, max_batch=4)
 FLEET_OUTAGES, FLEET_TOL = 6, 1e-6
+# the analysis phase: the saved artifacts checked by the CLI (svhn and
+# AlexNet W1A8 with batch hints 1 and 8, the LM plan phase's SmolLM-360M
+# geometry), the hand edit (AlexNet fc6, a 1x1 conv, pinned to implicit)
+# and the prover's boundaries held against the kernels on the card: the
+# deep-K implicit conv's image height, channels and depth (K = 9 * 64),
+# the attention geometries (flash: 1 x 256 rows x 4 heads; paged: 2 slots
+# of 8-page tables, pages of 16, 4 heads)
+ANALYSIS_EDIT = ("alexnet", 6, "fused", "implicit")
+ANALYSIS_CONV = dict(h=4, cin=64, cout=64)
+ANALYSIS_FLASH = dict(b=1, s=256, h=4)
+ANALYSIS_PAGED = dict(b=2, p=8, ps=16, h=4, np_=32)
+
 FLEET_CPU_RUN = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -2081,6 +2113,395 @@ def plan_phase(card: str, lm: dict) -> dict:
     return report
 
 
+class _Proofs:
+    """Stands in for the prover's ``assert_plan_verified``, which every
+    compile path of the port calls (``verify=True``, their default), and
+    records each proof: the plan, its violations and ``verify_plan``'s
+    milliseconds."""
+
+    def __init__(self):
+        from repro_torch.analysis import prover
+
+        self.prover, self.rows = prover, []
+
+    def install(self) -> "_Proofs":
+        self.prover.assert_plan_verified = self
+        return self
+
+    def __call__(self, plan, target=None) -> None:
+        t0 = time.perf_counter()
+        violations = self.prover.verify_plan(plan, target)
+        self.rows.append(dict(
+            model=plan.model, kind=plan.kind, quant=plan.quant.tag(),
+            rows=len(plan.layers), violations=len(violations),
+            verify_ms=1e3 * (time.perf_counter() - t0)))
+        if violations:
+            raise self.prover.PlanVerificationError(violations)
+
+
+PROOFS: _Proofs | None = None
+
+
+def _analysis_cli(*args, timeout=300) -> subprocess.Popen:
+    """``python -m repro_torch.analysis ARGS`` from the repository root in
+    a CPU-only interpreter, started (read with ``.communicate()``)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _family_plans() -> list:
+    """Each family's LM plan at full width, one pattern period deep,
+    compiled (and so proven) on the card: its rows and proof ms."""
+    import dataclasses
+    import gc
+
+    from repro_torch import api
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A8
+    from repro_torch.models import transformer as T
+
+    out = []
+    archs = [(a, prompt) for a, _, prompt, _, _ in FAMILIES] + [
+        ("hubert-xlarge", MOD_FRAMES), ("internvl2-26b", 2048)]
+    for arch, prompt in archs:
+        cfg = dataclasses.replace(get_config(arch), quant=W1A8)
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+        params = T.init_lm(torch.Generator(device="cuda").manual_seed(
+            FAM_SEED), cfg, SINGLE)
+        n = len(PROOFS.rows)
+        plan = api.build(cfg, params=params).compile(
+            target="cuda", prompt_len=prompt, batch_hints=(FAM_BATCH,)).plan
+        check(len(PROOFS.rows) == n + 1, f"{arch}: the compile proved "
+                                         f"{len(PROOFS.rows) - n} plans")
+        out.append(dict(arch=arch, n_layers=cfg.n_layers, prompt_len=prompt,
+                        rows=len(plan.layers), dense=len(plan.dense_table),
+                        attn_table=sorted(set(plan.attn_table.values())),
+                        verify_ms=PROOFS.rows[-1]["verify_ms"]))
+        del params, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bound_plans() -> dict:
+    """The prover's boundaries as one-row plans: kernel -> (boundary, the
+    shape just inside, its plan, the shape just outside, its plan)."""
+    from repro_torch.core.plan import LayerPlan, ModelPlan
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import conv_implicit as ci
+    from repro_torch.kernels import ops
+
+    def row(op, k, engine, a_bits, w_bits, **geom):
+        base = dict(index=0, name="bound", op=op, role="mid", fp=False,
+                    kh=1, kw=1, stride=1, padding="SAME", cin=k, cout=64,
+                    in_h=1, in_w=1, out_h=1, out_w=1, k=k, a_bits=a_bits,
+                    w_bits=w_bits, engine=engine, engine_source="override",
+                    engines=((1, engine),), cost=(1.0, 1.0, 1.0))
+        return LayerPlan(**{**base, **geom})
+
+    def cnn(r):
+        return ModelPlan(kind="cnn", model="bound", backend="cuda",
+                         quant=W1A8, batch_hints=(1,), layers=(r,))
+
+    def attn(shape, engine, batch):
+        r = row("attn", shape.head_dim, engine, 8, 8, cin=0, cout=0, kh=0,
+                kw=0, padding="", in_h=0, in_w=0, out_h=0, out_w=0,
+                attn_engine=engine, engines=((batch, engine),))
+        return ModelPlan(kind="lm", model="bound", backend="cuda",
+                         quant=W1A8, batch_hints=(batch,), layers=(r,),
+                         attn_table={ops.attn_plan_key(shape, "cuda"):
+                                     engine})
+
+    def gemm(k, engine, bits):     # (16, K) x (K, 64): a 4x4 1x1 conv
+        return cnn(row("conv", k, engine, bits, bits, in_h=4, in_w=4,
+                       out_h=4, out_w=4))
+
+    c = ANALYSIS_CONV
+    w_in = next(w for w in range(16, 4096) if ci.smem_layout(
+        c["h"], w + 1, c["cin"], 3, 3, 1, "SAME", 1, c["cout"]).smem_bytes
+        > ci.SMEM_LIMIT)
+
+    def conv(w):
+        return cnn(row("conv", 9 * c["cin"], "implicit", 8, 1, kh=3, kw=3,
+                       cin=c["cin"], cout=c["cout"], in_h=c["h"], in_w=w,
+                       out_h=c["h"], out_w=w))
+
+    fl, pg = ANALYSIS_FLASH, ANALYSIS_PAGED
+
+    def flash(hd):
+        return attn(ops.AttnShape(seq_q=fl["s"], seq_kv=fl["s"],
+                                  heads=fl["h"], head_dim=hd,
+                                  quantized=True), "flash", fl["b"])
+
+    def paged(hd):
+        return attn(ops.AttnShape(seq_q=1, seq_kv=pg["p"] * pg["ps"],
+                                  heads=pg["h"], head_dim=hd, quantized=True,
+                                  page_size=pg["ps"]), "paged", pg["b"])
+
+    return {
+        "fused_qgemm": ("W8A8 int32 accumulator: 255*255*K < 2^31",
+                        33025, gemm(33025, "fused", 8), 33026,
+                        gemm(33026, "fused", 8)),
+        "int8_matmul": ("s8 x s8 partial sums: 128*128*K < 2^31",
+                        131071, gemm(131071, "int8", 1), 131072,
+                        gemm(131072, "int8", 1)),
+        "conv_implicit": (f"shared memory <= {ci.SMEM_LIMIT} B a block",
+                          w_in, conv(w_in), w_in + 1, conv(w_in + 1)),
+        "attn_flash": ("head_dim in KERNEL_HEAD_DIMS", 128, flash(128), 112,
+                       flash(112)),
+        "attn_paged": ("paged_smem_bytes <= SMEM_LIMIT", 128, paged(128),
+                       256, paged(256)),
+    }
+
+
+def _bound_cases(dev) -> dict:
+    """kernel -> ``make(value)`` -> (the kernel's call, its plain
+    version's call on the same inputs, max|v| for the attention kernels'
+    tolerance or None): the shapes of ``_bound_plans``, each with a
+    worst-case operand row, so the accumulator reaches its bound."""
+    from repro_torch.kernels import bitgemm_mxu, conv_implicit, fused_qgemm
+    from repro_torch.kernels.attn_flash import attn_flash, attn_paged
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rs = np.random.RandomState(23)
+    c, fl, pg = ANALYSIS_CONV, ANALYSIS_FLASH, ANALYSIS_PAGED
+
+    def u8(*shape, hi=256):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    def pair(kernel, plain, *args, vmax=None, **kw):
+        return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                vmax)
+
+    def fused(k):
+        a, w = u8(16, k), u8(k, 64)
+        a[0], w[:, 0] = 255, 255            # out[0, 0]: 255 * 255 * K
+        return pair(fused_qgemm.fused_qgemm, fused_qgemm.fused_qgemm_plain,
+                    a, w, 0.0079, 127.5, a_bits=8, w_bits=8,
+                    a_is_levels=True)
+
+    def int8(k):
+        a = torch.randint(-128, 128, (16, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (k, 64), generator=gen, device=dev,
+                          dtype=torch.int8)
+        a[0], b[:, 0] = -128, -128          # out[0, 0]: 128 * 128 * K
+        return pair(bitgemm_mxu.int8_matmul, bitgemm_mxu.int8_matmul_plain,
+                    a, b)
+
+    def conv(w):
+        x, wl = u8(1, c["h"], w, c["cin"]), u8(9 * c["cin"], c["cout"], hi=2)
+        return pair(conv_implicit.conv_implicit,
+                    conv_implicit.conv_implicit_plain, x, wl, 0.0421, 0.5,
+                    kh=3, kw=3, stride=1, padding="SAME", a_bits=8, w_bits=1)
+
+    def flash(hd):
+        q, k, v = (torch.randn((fl["b"], fl["s"], fl["h"], hd), generator=gen,
+                               device=dev) for _ in range(3))
+        return (lambda: attn_flash(q, k, v, causal=True),
+                lambda: attn_flash(q, k, v, causal=True, reference=True),
+                float(v.abs().max()))
+
+    def paged(hd):
+        q, pk, pv, ppos, table, q_pos = _paged_case(
+            dev, gen, rs, b=pg["b"], s=1, hp=pg["h"], hkv=pg["h"], hd=hd,
+            ps=pg["ps"], np_=pg["np_"], p=pg["p"])
+
+        def call(reference):
+            out = attn_paged(q, pk, pv, ppos, table, q_pos, causal=True,
+                             quantized=True, n_q_heads=pg["h"],
+                             reference=reference)
+            return out[q_pos >= 0]
+
+        return (lambda: call(False), lambda: call(True),
+                float(pv.abs().max()))
+
+    return {"fused_qgemm": fused, "int8_matmul": int8,
+            "conv_implicit": conv, "attn_flash": flash, "attn_paged": paged}
+
+
+def _hold_bounds(dev) -> list:
+    """Each boundary: the prover's verdict on the shape just inside and
+    just outside, held against the kernel on the card (module docstring,
+    5c2)."""
+    from repro_torch.analysis.prover import verify_plan
+    from repro_torch.kernels import _lib
+
+    cases, rows = _bound_cases(dev), []
+    for name, (bound, v_in, p_in, v_out, p_out) in _bound_plans().items():
+        inside = verify_plan(p_in)
+        check(inside == [], f"{name} at {v_in}: the prover refuses the "
+                            f"shape inside its bound: {inside}")
+        kernel, plain, vmax = cases[name](v_in)
+        before = _lib.LAUNCHES[name]
+        got = kernel()
+        launched = _lib.LAUNCHES[name] - before
+        ref = plain()
+        torch.cuda.synchronize()
+        check(launched == 1, f"{name} at {v_in}: {launched} launches")
+        if vmax is None:
+            held = dict(bit_identical=bool(torch.equal(got, ref)))
+            check(held["bit_identical"], f"{name} at {v_in}: the kernel "
+                                         "differs from its plain version")
+        else:
+            err, tol = float((got - ref).abs().max()), ATTN_TOL_F32 * vmax
+            held = dict(max_abs_err=err, tol=tol)
+            check(err <= tol, f"{name} at {v_in}: max abs {err} > {tol}")
+        outside = sorted({v.rule for v in verify_plan(p_out)})
+        check(outside != [], f"{name} at {v_out}: the prover proves the "
+                             "shape outside the kernel's bound")
+        kernel, _, _ = cases[name](v_out)
+        before = _lib.LAUNCHES[name]
+        try:
+            kernel()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None, f"{name} at {v_out}: the wrapper "
+                                  "accepted a shape the prover refuses")
+        check(_lib.LAUNCHES[name] == before,
+              f"{name} at {v_out}: launched past the bound")
+        rows.append(dict(kernel=name, bound=bound,
+                         inside=dict(at=v_in, proven=True, launches=launched,
+                                     **held),
+                         outside=dict(at=v_out, rules=outside,
+                                      wrapper_raised=raised, launches=0)))
+    return rows
+
+
+def analysis_phase(card: str) -> dict:
+    """Static verification on the card (module docstring, 5c2): the
+    ``ANALYSIS`` line."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.analysis.lint import launcher_signatures
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import alexnet_spec, init_cnn, svhn_cnn_spec
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "analysis_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    lint = _analysis_cli("lint", "src/repro_torch", "chip_smoke.py")
+    ops.clear_plan_state()
+    earlier = list(PROOFS.rows)
+    smol = [r for r in earlier if r["model"] == "smollm-360m"]
+    check(smol, "no SmolLM-360M plan was proven before this phase")
+    fam = _family_plans()
+    largest = max(fam, key=lambda r: r["rows"])
+
+    # saved artifacts through the CLI
+    t0 = time.perf_counter()
+    svhn = api.build(svhn_cnn_spec(), W1A8, params=init_cnn(
+        torch.Generator(device=dev).manual_seed(0), svhn_cnn_spec()),
+        img_hw=40, name="svhn").compile(target="cuda", batch_hints=(1, 8))
+    alex_params = init_cnn(torch.Generator(device=dev).manual_seed(1),
+                           alexnet_spec())
+    alex_model = api.build(alexnet_spec(), W1A8, params=alex_params,
+                           img_hw=224, name="alexnet")
+    alex = alex_model.compile(target="cuda", batch_hints=(1, 8))
+    cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+    lm = api.build(cfg, params=T.init_lm(
+        torch.Generator(device=dev).manual_seed(2), cfg, SINGLE)).compile(
+        target="cuda", prompt_len=LM_PROMPT, batch_hints=(LM_BATCH,),
+        page_size=CONT_PAGE, kv_pages=PLAN_KV_PAGES)
+    paths = [c.save(os.path.join(work, name)) for name, c in (
+        ("svhn_w1a8", svhn), ("alexnet_w1a8", alex), ("smollm_w1a8", lm))]
+    del svhn, alex, lm
+    compiled_s = time.perf_counter() - t0
+    proven = PROOFS.rows[len(earlier) + len(fam):]
+    t0 = time.perf_counter()
+    good = _analysis_cli("check-plan", *paths)
+    edited = os.path.join(work, "alexnet_w1a8_edited.json")
+    model, idx, was, to = ANALYSIS_EDIT
+    with open(paths[1]) as f:
+        meta = json.load(f)
+    row = meta["layers"][idx]
+    check(row["engine"] == was and row["kh"] == 1,
+          f"{model} layer {idx}: {row['engine']} {row['kh']}x{row['kw']}")
+    row["engine"] = to
+    row["engines"] = [[b, to] for b, _ in row["engines"]]
+    with open(edited, "w") as f:       # its levels stay the original's
+        json.dump(meta, f)
+    bad = _analysis_cli("check-plan", edited)
+    # the facade's reload of the edited artifact: refused before a launch
+    from repro_torch.analysis.prover import PlanVerificationError
+
+    n_clean = len(PROOFS.rows)
+    before = dict(_lib.LAUNCHES)
+    try:
+        alex_model.compile(target="cuda", batch_hints=(1, 8), cache=edited)
+        reload_raised = None
+    except PlanVerificationError as e:
+        reload_raised = [v.rule for v in e.violations]
+    check(reload_raised and set(reload_raised) == {"PV103"},
+          f"compile(cache=<edited>) raised {reload_raised}")
+    check(_lib.LAUNCHES == before, "compile(cache=<edited>) launched")
+    del alex_params, alex_model
+    torch.cuda.empty_cache()
+    good_out, _ = good.communicate(timeout=300)
+    bad_out, _ = bad.communicate(timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(good.returncode == 0, f"check-plan on the saved plans exited "
+                                f"{good.returncode}:\n{good_out}")
+    check(bad.returncode == 1 and "PV103" in bad_out,
+          f"check-plan on the edited plan exited {bad.returncode}:\n"
+          f"{bad_out}")
+
+    t0 = time.perf_counter()
+    bounds = _hold_bounds(dev)
+    bounds_s = time.perf_counter() - t0
+
+    sites = launcher_signatures([os.path.join(ROOT, "src", "repro_torch")],
+                                root=ROOT)
+    lint_out, _ = lint.communicate(timeout=300)
+    check(lint.returncode == 0, f"repro-lint exited {lint.returncode}:\n"
+                                f"{lint_out}")
+    check(len(sites) == 12, f"RL004 proved {len(sites)} launchers, not 12")
+    clean = PROOFS.rows[:n_clean]
+    total = sum(r["violations"] for r in clean)
+    check(total == 0, f"{total} violations among the compiled plans")
+    line = dict(
+        card=card,
+        plans=dict(proven=len(clean), violations=total,
+                   earlier_phases=len(earlier),
+                   families=len(fam), artifacts=len(proven),
+                   verify_ms_smollm_360m=[r["verify_ms"] for r in smol],
+                   smollm_rows=smol[0]["rows"],
+                   largest_family=dict(arch=largest["arch"],
+                                       rows=largest["rows"],
+                                       verify_ms=largest["verify_ms"]),
+                   verify_ms_max=max(r["verify_ms"] for r in clean),
+                   by_model=sorted({(r["model"], r["quant"], r["rows"])
+                                    for r in earlier})),
+        families=fam,
+        check_plan=dict(saved=[os.path.basename(p) for p in paths],
+                        rc=good.returncode, output=good_out.strip(),
+                        edited=dict(model=model, layer=idx, engine=[was, to],
+                                    rc=bad.returncode,
+                                    output=bad_out.strip().splitlines()[-1],
+                                    compile_cache_raised=reload_raised,
+                                    launches_unchanged=True)),
+        bounds=bounds,
+        lint=dict(rc=lint.returncode, output=lint_out.strip(),
+                  rl004_sites=len(sites)),
+        seconds=dict(compile_and_save=compiled_s, cli=cli_s,
+                     bounds=bounds_s,
+                     phase=time.perf_counter() - t_phase))
+    print("ANALYSIS", json.dumps(line), flush=True)
+    return line
+
+
 def _tree_gb(tree) -> float:
     if isinstance(tree, dict):
         return sum(_tree_gb(v) for v in tree.values())
@@ -2883,6 +3304,8 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         print("KERNELS-ONLY done", flush=True)
         return 0
+    global PROOFS
+    PROOFS = _Proofs().install()
     t0 = time.perf_counter()
     report = main_path(card)
     launches = {k: report["launches"][k] for k in ("fused_qgemm",
@@ -2906,6 +3329,9 @@ def main() -> int:
     t0 = time.perf_counter()
     plan_phase(card, lm)
     print(f"PLAN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    analysis_phase(card)
+    print(f"ANALYSIS PHASE {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     fam = families_phase(card)
     print(f"FAMILIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)

@@ -17,8 +17,9 @@
     lm.serve(new_tokens=16).predict(prompts)              # LMRunner
 
 ``simulate`` is pure arithmetic over the plan's geometry and gives the
-reference's floats exactly.  Not ported yet: ``compile(verify=True)`` (the
-static prover).
+reference's floats exactly.  ``compile`` proves every plan it returns,
+fresh or reloaded (``verify=True``, the default; the static prover of
+:mod:`repro_torch.analysis`).
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ class Model:
 
     def compile(self, *, target: str = "cuda", batch_hints=(1,),
                 cache: str | None = None, autotune: bool = False,
-                verify: bool = False, prompt_len: int = 16,
+                verify: bool = True, prompt_len: int = 16,
                 page_size: int | None = None,
                 kv_pages: int | None = None) -> "CompiledModel":
         """Compile against a compute target (``cuda``).  Params are
@@ -123,10 +124,12 @@ class Model:
         ``cache`` names a plan file: if it exists it is reloaded (guarded
         by :func:`repro_torch.core.plan.check_plan_matches`; nothing is
         requantized or measured) onto the params' device (``cuda`` for a
-        structure-only model), otherwise the fresh plan is saved there."""
+        structure-only model), otherwise the fresh plan is saved there.
+        ``verify`` gates the static plan prover on both paths: a reloaded
+        plan is proven after ``check_plan_matches`` and before anything
+        runs on it."""
         from repro_torch.core import plan as P
 
-        P._check_verify(verify)
         t = get_target(target)
         if t.kind != "compute":
             raise P.PlanError(
@@ -139,6 +142,7 @@ class Model:
                 P.load_plan(cache, device=P._tree_device(self.params,
                                                          "cuda")),
                 quant=self.quant, model=self.name, backend=t.name)
+            P._verified(plan, verify)
             return CompiledModel(plan, model=self, cache_path=cache,
                                  reloaded=True,
                                  compile_s=time.perf_counter() - t0)
@@ -146,12 +150,13 @@ class Model:
             plan = P.compile_lm(self.params, self.spec, target=t.name,
                                 batch_hints=batch_hints,
                                 prompt_len=prompt_len, autotune=autotune,
-                                page_size=page_size, kv_pages=kv_pages)
+                                page_size=page_size, kv_pages=kv_pages,
+                                verify=verify)
         else:
             plan = P.compile_model(self.params, self.spec, self.quant,
                                    target=t.name, batch_hints=batch_hints,
                                    img_hw=self.img_hw, autotune=autotune,
-                                   model=self.name)
+                                   model=self.name, verify=verify)
         path = P.save_plan(plan, cache) if cache else None
         return CompiledModel(plan, model=self, cache_path=path,
                              reloaded=False,

@@ -24,6 +24,12 @@ shares; the CUDA kernels compute it with explicitly rounded multiplies
 (no FMA contraction), so a kernel and its plain version agree bit for
 bit.
 
+The float-in forms quantize their operands per call, as the reference
+does: :func:`quant_dense_forward` and :func:`quant_dense_forward_pre`
+(unsigned activations) and :func:`quant_dense_forward_signed` (the
+transformer's float weights at serve time); :func:`reference_float` is the
+quantize-dequantize float product they are held to.
+
 The signed (transformer) path, :func:`quant_dense_forward_signed_pre`, has
 no Pallas kernel in the reference: its level GEMM runs in XLA on one of
 four engines.  Here ``int8`` is one library int8 product,
@@ -39,8 +45,9 @@ import numpy as np
 import torch
 
 from . import bitplane
-from .quant import (activation_levels_signed, activation_levels_signed_row,
-                    signed_levels)
+from .quant import (activation_levels, activation_levels_signed,
+                    activation_levels_signed_row, signed_levels,
+                    weight_levels)
 
 
 def int32_exact(k: int, a_bits: int, w_bits: int) -> bool:
@@ -209,6 +216,41 @@ def quant_dense_pre_levels(a_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w,
     return dequant_epilogue(acc, a_lv.sum(dim=-1, dtype=torch.int32), s, t)
 
 
+def quant_dense_forward(a: torch.Tensor, w: torch.Tensor, a_bits: int,
+                        w_bits: int, engine: str = "int8") -> torch.Tensor:
+    """Float-in quantized dense: ``a`` (..., K) activations (clipped to
+    [0, 1] by the caller's activation, as in DoReFa) and ``w`` (K, N) float
+    weights, both quantized here, then the level GEMM and the shared
+    epilogue; out in ``a``'s dtype."""
+    w_lv, s_w, z_w = weight_levels(w, w_bits)
+    return quant_dense_forward_pre(a, w_lv, float(s_w), float(z_w), a_bits,
+                                   w_bits, engine)
+
+
+def quant_dense_forward_pre(a: torch.Tensor, w_lv: torch.Tensor, s_w, z_w,
+                            a_bits: int, w_bits: int, engine: str = "int8"
+                            ) -> torch.Tensor:
+    """Unsigned quantized dense with pre-quantized weights, float
+    activations in: ``a`` (..., K) to levels, then
+    :func:`quant_dense_pre_levels`; out in ``a``'s dtype."""
+    lead = a.shape[:-1]
+    a_lv, _ = activation_levels(a.reshape(-1, a.shape[-1]), a_bits)
+    out = quant_dense_pre_levels(a_lv, w_lv, s_w, z_w, a_bits, w_bits,
+                                 engine=engine)
+    return out.reshape(lead + (w_lv.shape[-1],)).to(a.dtype)
+
+
+def reference_float(a: torch.Tensor, w: torch.Tensor, a_bits: int,
+                    w_bits: int) -> torch.Tensor:
+    """Quantize-dequantize float matmul, the semantic oracle of the
+    unsigned level GEMM."""
+    a_lv, s_a = activation_levels(a.reshape(-1, a.shape[-1]), a_bits)
+    w_lv, s_w, z_w = weight_levels(w, w_bits)
+    aq = a_lv.to(torch.float32) * s_a
+    wq = (w_lv.to(torch.float32) - z_w) * s_w
+    return (aq @ wq).reshape(a.shape[:-1] + (w.shape[-1],))
+
+
 # torch._int_mm on the card (cuBLASLt int8) takes more than 16 rows, a row
 # count in multiples of 8, and K, N in multiples of 8
 _INT_MM_MIN_ROWS = 24
@@ -272,7 +314,10 @@ def quant_dense_forward_signed_pre(a: torch.Tensor, w_lv: torch.Tensor, s_w,
     else:
         a_lv, s_a, _ = activation_levels_signed(a2, a_bits)
     z_a = 1 << (a_bits - 1)
-    if engine in ("planes", "packed"):
+    if engine in ("planes", "packed") or (engine == "int8"
+                                          and w_lv.dtype != torch.int8):
+        # the unsigned form also serves levels past int8 (w_bits = 8, float
+        # weights quantized per call), as the reference's engines do
         acc = _ENGINES[engine](a_lv, w_lv.to(torch.int32), a_bits,
                                w_bits).to(torch.float32)
         rowsum = a_lv.sum(dim=-1, dtype=torch.int32).to(torch.float32)
@@ -293,3 +338,20 @@ def quant_dense_forward_signed_pre(a: torch.Tensor, w_lv: torch.Tensor, s_w,
         bracket = acc - z_w * rowsum[:, None]
     out = bracket * (s_a.float() * s_w)
     return out.reshape(lead + (w_lv.shape[-1],)).to(a.dtype)
+
+
+def quant_dense_forward_signed(a: torch.Tensor, w: torch.Tensor, a_bits: int,
+                               w_bits: int, engine: str = "int8",
+                               a_scale_mode: str = "tensor") -> torch.Tensor:
+    """Signed quantized dense on float weights (a transformer projection
+    served without prequantization): ``w`` (K, N) to levels here, then
+    :func:`quant_dense_forward_signed_pre` with a per-tensor (``tensor``)
+    or per-row (``row``) activation scale.  Levels up to 7 bits go in as
+    int8, as :func:`repro_torch.models.layers.prequantize_params` stores
+    them."""
+    w_lv, s_w, z_w = weight_levels(w, w_bits)
+    if w_bits <= 7:
+        w_lv = w_lv.to(torch.int8)
+    return quant_dense_forward_signed_pre(
+        a, w_lv, s_w.float(), z_w.float(), a_bits, w_bits,
+        a_scale="row" if a_scale_mode == "row" else None, engine=engine)

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .prequant import level_dtype
-from .quant import activation_levels
+from .quant import activation_levels, weight_levels
 
 
 def _out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: str):
@@ -52,6 +52,53 @@ def im2col_sliced(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
               dx: dx + (ow - 1) * stride + 1: stride, :]
             for dy in range(kh) for dx in range(kw)]
     return torch.cat(cols, dim=-1)
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """x (B,H,W,C) -> patches (B,OH,OW,C*kh*kw), features (C, kh, kw)-major
+    as the reference's ``lax.conv_general_dilated_patches`` emits them (a
+    reordering of :func:`im2col_sliced`, so exact in any dtype)."""
+    b, _, _, c = x.shape
+    p = im2col_sliced(x, kh, kw, stride, padding)
+    oh, ow = p.shape[1], p.shape[2]
+    return p.reshape(b, oh, ow, kh * kw, c).transpose(3, 4).reshape(
+        b, oh, ow, c * kh * kw)
+
+
+def quant_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                 padding: str = "SAME", a_bits: int = 4, w_bits: int = 1,
+                 engine: str | None = None) -> torch.Tensor:
+    """Bit-wise conv on float weights, requantized on every call (the
+    reference's training-checkpoint entry point): x (B,H,W,Cin) in [0,1],
+    w (kh,kw,Cin,Cout) float -> (B,OH,OW,Cout).  ``fused`` and
+    ``faithful`` run the serve kernels on the levels
+    (:func:`repro_torch.kernels.ops.quant_dense_serve`); the other level
+    engines the float-in dense.  ``engine=None`` asks
+    :func:`repro_torch.kernels.ops.select_engine`."""
+    from repro_torch.kernels import ops  # kernels layer sits above core
+    from .and_accum import quant_dense_forward
+
+    kh, kw, cin, cout = w.shape
+    patches = im2col(x, kh, kw, stride, padding)
+    b, oh, ow, kdim = patches.shape
+    # im2col's features are (C, kh, kw)-major: the weights follow
+    w2 = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    if engine is None:
+        engine = ops.select_engine(b * oh * ow, kdim, cout, a_bits, w_bits,
+                                   device=x.device)
+    if engine in ("fused", "faithful"):
+        w_lv, s_w, z_w = weight_levels(w2, w_bits)
+        p_lv = activation_levels(patches.reshape(-1, kdim), a_bits)[0]
+        out = ops.quant_dense_serve(
+            p_lv.to(level_dtype(a_bits)).contiguous(),
+            w_lv.to(level_dtype(w_bits)).contiguous(), float(s_w),
+            float(z_w), a_bits=a_bits, w_bits=w_bits,
+            engine=engine).to(x.dtype)
+    else:
+        out = quant_dense_forward(patches.reshape(-1, kdim), w2, a_bits,
+                                  w_bits, engine=engine)
+    return out.reshape(b, oh, ow, cout)
 
 
 def quant_conv2d_pre(x: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,

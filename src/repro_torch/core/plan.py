@@ -23,7 +23,11 @@ on-disk layout (``<path>.json`` metadata + ``<path>.npz`` levels, the same
 ``PLAN_VERSION``): a restarted node reloads its plan and never
 requantizes or measures.  ``ModelPlan.meta()`` carries the reference's
 keys, so a plan's :meth:`~ModelPlan.fingerprint` hashes the same fields.
-Not ported yet: the static prover (``verify=True`` raises).
+
+Both compile passes prove their plan before returning it
+(:func:`repro_torch.analysis.prover.assert_plan_verified`, PV101-PV108
+against the Hopper kernels' bounds), as the reference does;
+``verify=False`` skips the proof.
 """
 from __future__ import annotations
 
@@ -180,10 +184,14 @@ def _tree_device(tree, default) -> torch.device:
     return None if default is None else torch.device(default)
 
 
-def _check_verify(verify: bool) -> None:
+def _verified(plan: "ModelPlan", verify: bool) -> "ModelPlan":
+    """``plan``, proven first when ``verify`` (raises
+    :class:`repro_torch.analysis.prover.PlanVerificationError`)."""
     if verify:
-        raise NotImplementedError("verify=True: the static plan prover is "
-                                  "not yet ported")
+        from repro_torch.analysis.prover import assert_plan_verified
+
+        assert_plan_verified(plan)
+    return plan
 
 
 def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
@@ -283,7 +291,7 @@ def _pack_faithful_weights(params, layers):
 
 def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
                   batch_hints=(1,), img_hw=40, autotune: bool = False,
-                  model: str = "cnn", verify: bool = False) -> ModelPlan:
+                  model: str = "cnn", verify: bool = True) -> ModelPlan:
     """Compile a CNN serve plan.  ``params`` (float or prequantized, on any
     device) are pre-quantized once on their own device; ``params=None``
     gives a structure-only plan.  An explicit ``quant.engine`` that is
@@ -293,10 +301,12 @@ def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
 
     ``autotune=True`` times every layer's candidate engines at every batch
     hint on the params' device (the target's own for a structure-only
-    plan) and keeps the measurements in ``ModelPlan.autotune``."""
+    plan) and keeps the measurements in ``ModelPlan.autotune``.
+    ``verify`` (default) proves the plan before returning it (a violation
+    raises :class:`~repro_torch.analysis.prover.PlanVerificationError`, a
+    :class:`PlanError`)."""
     from repro_torch.api.targets import get_target
 
-    _check_verify(verify)
     target = get_target(target).name
     if isinstance(img_hw, int):
         img_hw = (img_hw, img_hw)
@@ -324,9 +334,10 @@ def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
                                   lp.stride, lp.padding, batch=b))
                 if key in ops._AUTOTUNE_CACHE:
                     tuned[key] = ops._AUTOTUNE_CACHE[key]
-    return ModelPlan(kind="cnn", model=model, backend=target, quant=quant,
-                     batch_hints=batch_hints, layers=layers,
-                     params=serve_params, autotune=tuned)
+    return _verified(ModelPlan(
+        kind="cnn", model=model, backend=target, quant=quant,
+        batch_hints=batch_hints, layers=layers, params=serve_params,
+        autotune=tuned), verify)
 
 
 def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
@@ -411,7 +422,7 @@ def _lm_is_prequantized(params) -> bool:
 def compile_lm(params, cfg, *, target: str = "cuda", batch_hints=(1,),
                prompt_len: int = 16, autotune: bool = False,
                page_size: int | None = None, kv_pages: int | None = None,
-               verify: bool = False) -> ModelPlan:
+               verify: bool = True) -> ModelPlan:
     """Compile a transformer serve plan: pre-quantize every projection once
     (``params``: the port's LM tree, float or already prequantized, on any
     device) and resolve one verdict per distinct (K, N) GEMM into the
@@ -422,11 +433,11 @@ def compile_lm(params, cfg, *, target: str = "cuda", batch_hints=(1,),
 
     ``page_size`` / ``kv_pages`` declare the continuous engine's paged
     geometry (``kv_pages`` = the page-table width): the plan then carries
-    a ``paged`` verdict for its decode step."""
+    a ``paged`` verdict for its decode step.  ``verify`` (default) proves
+    the plan before returning it."""
     from repro_torch.api.targets import LayerGeometry, get_target
     from repro_torch.models.layers import PREQUANT_KEYS, prequantize_params
 
-    _check_verify(verify)
     cost_target = get_target(target)
     target = cost_target.name
     quant = cfg.quant
@@ -477,11 +488,11 @@ def compile_lm(params, cfg, *, target: str = "cuda", batch_hints=(1,),
         tuned = {k: v for k, v in ops._AUTOTUNE_CACHE.items()
                  if k[0] == "signed" and k[-1] == device.type
                  and any(k[2:4] == (lp.k, lp.cout) for lp in layers)}
-    return ModelPlan(kind="lm", model=getattr(cfg, "name", "lm"),
-                     backend=target, quant=quant, batch_hints=batch_hints,
-                     layers=tuple(layers), params=serve_params,
-                     dense_table=table, attn_table=attn_table,
-                     autotune=tuned)
+    return _verified(ModelPlan(
+        kind="lm", model=getattr(cfg, "name", "lm"), backend=target,
+        quant=quant, batch_hints=batch_hints, layers=tuple(layers),
+        params=serve_params, dense_table=table, attn_table=attn_table,
+        autotune=tuned), verify)
 
 
 def _attn_row(index: int, name: str, attn, eng: str, cfg, quant,
@@ -570,7 +581,7 @@ def _layer_from_json(d: dict) -> LayerPlan:
 
 def _host_array(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        return leaf.detach().cpu().numpy()  # repro-lint: disable=RL002 — save_plan writes to disk
     if isinstance(leaf, float):
         return np.asarray(leaf, np.float32)
     return np.asarray(leaf)

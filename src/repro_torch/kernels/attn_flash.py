@@ -102,8 +102,8 @@ def flash_error_bound(q: torch.Tensor, k: torch.Tensor, q_bits: int,
     """Worst-case absolute logit error against unquantized attention (a
     host-side helper for test tolerances: it reads two maxima)."""
     hd = q.shape[-1]
-    qm = float(torch.max(torch.abs(q)))
-    km = float(torch.max(torch.abs(k)))
+    qm = float(torch.max(torch.abs(q)))  # repro-lint: disable=RL002 — tolerance helper
+    km = float(torch.max(torch.abs(k)))  # repro-lint: disable=RL002 — tolerance helper
     s_q = qm / (1 << (q_bits - 1)) + 1e-12
     s_k = km / (1 << (k_bits - 1)) + 1e-12
     return hd * (s_q * km + s_k * qm + s_q * s_k / 2) / (2 * math.sqrt(hd))

@@ -3,11 +3,11 @@
 Conventions follow the reference: activations ``(B, S, d)``, attention
 heads ``(B, S, H, hd)``, params as nested dicts of tensors.  Every
 projection is a :func:`qdense`: prequantized ``{"q", "s", "z"}`` weights
-run the signed level GEMM; float weights are the train-mode fake-quant
-product on quantized configs (the reference's serve path calls it for
-the weights its one-level-deep prequantization leaves float: RG-LRU's
-``wx``/``wy``, every RWKV-6 projection, the MoE's shared expert) and a
-plain matmul on fp configs.
+run the signed level GEMM; float weights are quantized per call in serve
+mode, the fake-quant product in train mode (the mode the reference's
+serve path uses for the weights its one-level-deep prequantization leaves
+float: RG-LRU's ``wx``/``wy``, every RWKV-6 projection, the MoE's shared
+expert) and a plain matmul on fp configs.
 
 Attention engines: ``full`` (materialized logits), ``chunked`` (an
 online-softmax scan over padded KV chunks) and ``banded`` (block-diagonal
@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.and_accum import (SIGNED_ENGINES,
+                                        quant_dense_forward_signed,
                                         quant_dense_forward_signed_pre)
 from repro_torch.core.quant import (QuantConfig, fake_quant_act_signed,
                                     quantize_weight, weight_levels)
@@ -53,8 +54,9 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
     matmul on fp configs and on first/last layers kept fp; otherwise
     ``mode="train"`` is the fake-quant product (per-tensor signed
     activation levels times the DoReFa weight, both in their float
-    straight-through form ``x + (q - x)``), and ``mode="serve"`` raises:
-    the port serves prequantized weights only."""
+    straight-through form ``x + (q - x)``), and ``mode="serve"`` quantizes
+    the weight here and runs the signed level GEMM
+    (:func:`~repro_torch.core.and_accum.quant_dense_forward_signed`)."""
     if isinstance(w, dict):
         a_scale = "row" if quant.act_scale_mode == "row" else None
         return quant_dense_forward_signed_pre(
@@ -65,8 +67,10 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
             role in ("first", "last") and quant.first_last_fp):
         return x @ w.to(x.dtype)
     if mode == "serve":
-        raise ValueError("serve-mode qdense takes prequantized weights: call "
-                         "prequantize_params first")
+        return quant_dense_forward_signed(
+            x, w, quant.a_bits, quant.w_bits,
+            engine=_signed_engine(x, w.shape[-1], quant),
+            a_scale_mode=quant.act_scale_mode)
     aq = fake_quant_act_signed(x, quant.a_bits)
     wq = quantize_weight(w, quant.w_bits).to(x.dtype)
     return aq @ wq

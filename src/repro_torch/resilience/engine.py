@@ -359,7 +359,8 @@ class ResilientServeEngine(ServeEngine):
             host = self._run_epochs(bucket, padded, dev)
         else:
             self._fault_gate("dispatch", dt=1.0)
-            host = self.runner.forward(dev, bucket.key).cpu().numpy()
+            # the answer goes back to its requests: this wait is the harvest
+            host = self.runner.forward(dev, bucket.key).cpu().numpy()  # repro-lint: disable=RL002
             self.stats["executed_steps"] += 1
             self.stats["useful_steps"] += 1
         self._record_results(bucket, padded, host, t_start)
@@ -428,7 +429,7 @@ class ResilientServeEngine(ServeEngine):
             self.stats["epochs"] += 1
             if tag is not None:
                 self._commit(tag, e + 1, state)
-        host = state[3].cpu().numpy()
+        host = state[3].cpu().numpy()  # repro-lint: disable=RL002 — the tokens' harvest
         self.stats["useful_steps"] += sum(schedule)
         if tag is not None:
             self.ckpt.purge(tag)

@@ -149,7 +149,7 @@ class Checkpointer:
             def _run():
                 try:
                     _write()
-                except Exception as e:  # re-raised by wait()
+                except Exception as e:  # repro-lint: disable=RL003 — re-raised by wait()
                     self._error = e
 
             self._thread = threading.Thread(target=_run, daemon=True)

@@ -189,9 +189,11 @@ def test_qdense_train_mode_equals_reference(qname):
     got = L.qdense(_t(x), _t(w), quant.PAPER_CONFIGS[qname])
     _close(got, ref)
     # mode="train" is the default, a float weight's path on a quantized
-    # config; the serve mode takes prequantized weights only
-    with pytest.raises(ValueError, match="prequantized"):
-        L.qdense(_t(x), _t(w), quant.PAPER_CONFIGS[qname], mode="serve")
+    # config; the serve mode quantizes the float weight per call, as the
+    # reference's does (it raised before that was ported)
+    ref_serve = jax.jit(lambda a, b: JL.qdense(a, b, q, mode="serve"))(x, w)
+    _close(L.qdense(_t(x), _t(w), quant.PAPER_CONFIGS[qname], mode="serve"),
+           ref_serve)
     # fp configs and fp first/last layers are a plain matmul
     np.testing.assert_array_equal(
         L.qdense(_t(x), _t(w), quant.FP32).numpy(), (_t(x) @ _t(w)).numpy())

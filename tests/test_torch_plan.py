@@ -348,18 +348,42 @@ def test_deployment_queue_passthroughs_and_report_rows(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(autotune=True), dict(verify=True)])
-def test_unported_compile_options_raise(kw):
-    """The static prover is not ported: ``verify=True`` raises.  Autotune
-    is: it times the candidates on the params' device (here the CPU) and
-    keeps the measurements in the plan."""
+def test_unported_compile_options_raise(kw, tmp_path):
+    """Both options are ported (each raised before its slice).  Autotune
+    times the candidates on the params' device (here the CPU) and keeps
+    the measurements in the plan.  ``verify=True`` (the default) proves
+    the plan it returns, and a hand-edited ``cache=`` artifact (the 1x1
+    conv6 pinned to ``implicit``) is refused with
+    ``PlanVerificationError``, a ``PlanError``, before any kernel runs;
+    ``verify=False`` reloads it unproven."""
+    from repro_torch.analysis.prover import (PlanVerificationError,
+                                             verify_plan)
+    from repro_torch.kernels import _lib, ops
+
     spec = cnn.svhn_cnn_spec(WIDTH)
     model = api.build(spec, quant.W1A4, img_hw=IMG, params=cnn.init_cnn(
         torch.Generator().manual_seed(0), spec))
     if kw.get("verify"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            model.compile(**kw)
+        compiled = model.compile(**kw)
+        assert verify_plan(compiled.plan) == [] and not compiled.reloaded
+        path = compiled.save(str(tmp_path / "svhn"))
+        with open(path) as f:
+            meta = json.load(f)
+        row = meta["layers"][6]
+        assert (row["kh"], row["fp"]) == (1, False)
+        row["engine"] = "implicit"
+        row["engines"] = [[b, "implicit"] for b, _ in row["engines"]]
+        with open(path, "w") as f:
+            json.dump(meta, f)
+        before = dict(_lib.LAUNCHES)
+        with pytest.raises(PlanVerificationError, match="PV103") as ei:
+            model.compile(cache=path, **kw)
+        assert isinstance(ei.value, P.PlanError)
+        assert _lib.LAUNCHES == before
+        unproven = model.compile(cache=path, verify=False)
+        assert unproven.reloaded and unproven.plan.layers[6].engine == \
+            "implicit"
         return
-    from repro_torch.kernels import ops
 
     ops.clear_plan_state()
     compiled = model.compile(**kw)
