@@ -171,8 +171,30 @@ Phases, each of which makes the script exit nonzero when it fails:
    busiest node's outage schedule replayed through the port's
    ResilientServeEngine on the card (``live_validation(device="cuda")``:
    ok, integer deltas 0, float deltas within 1e-6), with host seconds;
+5f. training, one ``TRAIN`` line (deterministic kernels:
+   ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts): the paper's
+   svhn CNN at full width (64), W1A4, batch 32, through
+   ``IntermittentTrainer`` (4 microbatches a step, snapshots every 2,
+   full checkpoints every 2 steps): a golden run of 4 steps and a chaotic
+   one with power failures at TRAIN_CNN_FAILS through
+   ``run_with_failures`` end with params equal bit for bit on the card;
+   the first step's loss and gradients against the same step on the CPU
+   (the CPU tests' tolerances, or a pinned level flip); no port kernel
+   launched while training; the trained params through ``api.build(...,
+   W1A4).compile()`` served on 64 images: ``conv_implicit`` and
+   ``fused_qgemm`` launch, the logits equal ``forward(reference=True)``
+   bit for bit; SmolLM-360M W1A8 at full width through ``Trainer`` for 20
+   steps (batch 8, seq 64, lr 3e-3, warmup 5, bf16 compute, remat),
+   checkpoints at steps 10 and 20: every loss finite, the last below the
+   first, no port kernel launched, a fresh ``Trainer`` restoring step 20
+   with params and optimizer state equal bit for bit on the card, then 2
+   steps with compressed gradients; the median ms per step over steps
+   3-20 (synchronized), one step's host wall against its device time
+   (``torch.profiler``), ``torch.cuda.max_memory_allocated`` and the
+   phase's seconds;
 6. one JSON line listing the kernels (with the families' and the
-   modalities' launches), then the contract's last line.
+   modalities' launches, and the train phase's handoff launches), then
+   the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
 The script imports nothing of JAX and nothing of the JAX package.
@@ -189,6 +211,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the train phase's deterministic mode needs cuBLAS's fixed workspace,
+# set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -453,6 +478,29 @@ ANALYSIS_EDIT = ("alexnet", 6, "fused", "implicit")
 ANALYSIS_CONV = dict(h=4, cin=64, cout=64)
 ANALYSIS_FLASH = dict(b=1, s=256, h=4)
 ANALYSIS_PAGED = dict(b=2, p=8, ps=16, h=4, np_=32)
+
+# the train phase: the paper's CNN (svhn at full width 64, W1A4, batch
+# 32) under power failures through IntermittentTrainer, then served on the
+# card's kernels (its 6 quantized convs: 5 on conv_implicit, the 1x1 one
+# on fused_qgemm); SmolLM-360M W1A8 at full width trained by Trainer.
+# The card-vs-CPU first step is held layer by layer on the CPU's inputs
+# to the CPU tests' tolerances (tests/test_torch_train_cnn.py: loss 1e-6,
+# gradients 1e-4 x max|g|), every level flip pinned as there: within
+# TRAIN_FLIP_MARGIN of a level boundary.  The activations are held at
+# 1e-4 of their max too: batch-normed float32 activations sit up to
+# 1.1e-5 from float64 on either side (train_precision.py, svhn(64) layer
+# 5 on an H100: the card 1.07e-5, the CPU 1.03e-5)
+TRAIN_CNN = dict(channels=64, batch=32, steps=4, images=64)
+TRAIN_CNN_FAILS = {(1, 3), (2, 1)}
+TRAIN_SERVE_LAUNCHES = {"conv_implicit": 5, "fused_qgemm": 1}
+TRAIN_ACT_TOL, TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-6, 1e-4
+TRAIN_FLIP_MARGIN = 1e-4
+# SmolLM's batches: lm_batch's Markov stream over the first data_vocab of
+# the model's 49152 tokens; over all of them 20 steps of 512 tokens hold
+# no learnable signal (the loss sits at the uniform floor, +-0.02 of
+# batch noise), over 512 the loss falls within the 20 steps
+TRAIN_LM = dict(steps=20, batch=8, seq=64, lr=3e-3, warmup=5, ckpt_every=10,
+                compressed_steps=2, timed_from=3, data_vocab=512)
 
 FLEET_CPU_RUN = r"""
 import json, sys
@@ -3093,6 +3141,334 @@ def fleet_phase(card: str) -> dict:
     return line
 
 
+def _first_step_vs_cpu(params, batch, spec, quant, dev="cuda") -> dict:
+    """The CNN's first training step on the card against the same step on
+    the CPU, layer by layer with teacher forcing, as the CPU tests hold
+    the port to the reference's inputs: each card layer takes the CPU
+    layer's input and the CPU's gradient of its output.  Held, at every
+    layer: the pre-rounding activation (conv, bias, norm, clip) and the
+    output within TRAIN_ACT_TOL x their max; each gradient leaf and the
+    input's gradient within TRAIN_GRAD_TOL x its max|g| (a bias the batch
+    norm cancels: x the tree's max|g|, its exact gradient being zero);
+    the loss of the card's last layer within TRAIN_LOSS_TOL.  A level
+    flip (the two pre-rounding values on either side of a level boundary)
+    is pinned: within TRAIN_FLIP_MARGIN of the boundary, and the output
+    off by more than its tolerance at no more elements than there are
+    flips, by at most a level."""
+    import dataclasses
+
+    from repro_torch.models import cnn
+
+    fp = dataclasses.replace(quant, engine="fp")
+    n = (1 << quant.a_bits) - 1
+    last = len(spec) - 1
+    x = torch.from_numpy(batch["image"])
+    labels = torch.from_numpy(batch["label"])
+    host = [{k: v.detach().cpu().requires_grad_() for k, v in p.items()}
+            for p in params]
+    card = [{k: v.detach().to(dev).requires_grad_() for k, v in p.items()}
+            for p in params]
+
+    def acts(p, s, h):      # the clipped value before the level rounding
+        with torch.no_grad():
+            return cnn._norm_act(cnn.conv_bias(p, s, h, quant), p["g"],
+                                 p["beta"], fp, s.role, "train")
+
+    def grad(out, leaves, up):    # zeros for the last layer's unused norm
+        gs = torch.autograd.grad(out, leaves, up, allow_unused=True)
+        return [torch.zeros_like(v) if g is None else g
+                for v, g in zip(leaves, gs)]
+
+    ins, outs, h = [], [], x
+    for i, (p, s) in enumerate(zip(host, spec)):
+        h = h.detach().requires_grad_(i > 0)
+        ins.append(h)
+        h = cnn.cnn_layer(p, s, h, quant, i == last)
+        outs.append(h)
+    loss_c, _ = cnn.xent(torch.mean(outs[-1], dim=(1, 2)), labels)
+    ups = [None] * len(spec)
+    ups[last], = torch.autograd.grad(loss_c, outs[-1])
+    g_host, g_in = [None] * len(spec), [None] * len(spec)
+    for i in range(last, -1, -1):
+        leaves = list(host[i].values()) + ([ins[i]] if i else [])
+        gs = grad(outs[i], leaves, ups[i])
+        g_host[i] = dict(zip(host[i], gs))
+        if i:
+            g_in[i] = ups[i - 1] = gs[-1]
+    gmax = max(float(g.abs().max()) for gl in g_host for g in gl.values())
+
+    def rel(a, b, scale=None):
+        b = b.detach()
+        err = float((a.detach().cpu() - b).abs().max())
+        return err / max(float(b.abs().max()) if scale is None else scale,
+                         1e-30)
+
+    layers = []
+    for i, (p, s) in enumerate(zip(card, spec)):
+        hin = ins[i].detach().to(dev).requires_grad_(i > 0)
+        out = cnn.cnn_layer(p, s, hin, quant, i == last)
+        leaves = list(p.values()) + ([hin] if i else [])
+        gs = dict(zip(list(p) + ["input"],
+                      grad(out, leaves, ups[i].to(dev))))
+        ref = dict(g_host[i], input=g_in[i]) if i else g_host[i]
+        g_rel = max(rel(gs[k], ref[k], gmax if (k == "b" and i < last)
+                        else None) for k in ref)
+        check(g_rel <= TRAIN_GRAD_TOL,
+              f"train: first step, layer {i}'s gradients {g_rel:.3g} x "
+              f"max|g| apart (card vs cpu)")
+        row = dict(layer=i, grad_rel=g_rel)
+        diff = (out.detach().cpu() - outs[i].detach()).abs()
+        tol = TRAIN_ACT_TOL * float(outs[i].detach().abs().max())
+        flips = 0
+        if i < last:
+            a, b = acts(p, s, hin).cpu(), acts(host[i], s, ins[i])
+            row["act_rel"] = rel(a, b)
+            check(row["act_rel"] <= TRAIN_ACT_TOL,
+                  f"train: first step, layer {i}'s activations "
+                  f"{row['act_rel']:.3g} apart (card vs cpu)")
+            if quant.engine != "fp" and s.role != "last":
+                flip = torch.round(a * n) != torch.round(b * n)
+                flips = int(flip.sum())
+                if flips:
+                    frac = (b[flip] * n).double()
+                    margin = float(((frac - frac.floor()) - 0.5).abs().max())
+                    row["flips"] = dict(n=flips, max_margin_levels=margin)
+                    check(margin < TRAIN_FLIP_MARGIN,
+                          f"train: first step, layer {i}'s levels differ "
+                          f"away from a boundary ({margin:.3g} levels)")
+        off = int((diff > tol).sum())
+        row["out_rel"] = float(diff.max()) / max(tol / TRAIN_ACT_TOL, 1e-30)
+        check(off <= flips and float(diff.max()) <= tol + 1.0 / n,
+              f"train: first step, layer {i}'s output off at {off} "
+              f"elements by up to {float(diff.max()):.3g} with {flips} "
+              f"level flips (card vs cpu)")
+        layers.append(row)
+        if i == last:
+            loss_g, _ = cnn.xent(torch.mean(out, dim=(1, 2)),
+                                 labels.to(dev))
+    loss_g, loss_c = float(loss_g.detach()), float(loss_c.detach())
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    check(loss_rel <= TRAIN_LOSS_TOL,
+          f"train: first-step loss {loss_rel:.3g} apart (card vs cpu)")
+    return dict(loss_card=loss_g, loss_cpu=loss_c,
+                loss_rel=loss_rel, layers=layers)
+
+
+def train_phase(card: str) -> dict:
+    """The train phase, one ``TRAIN`` line: (1) the paper's CNN at full
+    width under power failures (golden vs chaotic run bit for bit on the
+    card, first step vs the CPU); (2) the trained CNN compiled and served
+    on ``conv_implicit`` and ``fused_qgemm``, equal to the plain versions
+    bit for bit, with no port kernel launched by training; (3)
+    SmolLM-360M W1A8 at full width through ``Trainer``: finite and
+    falling loss, checkpoints at steps 10 and 20, a fresh trainer's
+    restore bit for bit on the card, two steps with compressed gradients;
+    (4) ms per step, host wall against device time, peak memory."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core.quant import W1A4, W1A8
+    from repro_torch.data.synthetic import lm_batch, svhn_like
+    from repro_torch.kernels import _lib
+    from repro_torch.models import cnn
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.intermittent import (IntermittentConfig,
+                                                IntermittentTrainer,
+                                                deterministic_algorithms,
+                                                run_with_failures)
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer, to_device
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_phase_",
+                            dir=os.path.join(ROOT, "build"))
+    line: dict = dict(card=card)
+    try:
+        # (1) the paper's CNN under power failures
+        c = TRAIN_CNN
+        spec = cnn.svhn_cnn_spec(c["channels"])
+
+        def batch_fn(step, micro):
+            x, y = svhn_like(c["batch"], seed=step * 31 + micro)
+            return dict(image=x, label=y)
+
+        def loss_fn(p, b):
+            return cnn.cnn_loss(p, b, spec, W1A4)
+
+        init = cnn.init_cnn(torch.Generator(device=dev).manual_seed(0), spec)
+        ocfg = OptConfig(lr=3e-3, warmup_steps=2, total_steps=c["steps"])
+        icfg = IntermittentConfig(accum_steps=4, snapshot_every=2,
+                                  full_every=2)
+
+        def make(tag, fail_at=None):
+            params = [{k: v.clone() for k, v in p.items()} for p in init]
+            return IntermittentTrainer(
+                loss_fn, params, ocfg, batch_fn,
+                Checkpointer(os.path.join(root, tag), keep=3,
+                             async_save=False), icfg, fail_at=fail_at)
+
+        t0 = time.perf_counter()
+        with deterministic_algorithms():
+            line["cnn_first_step"] = _first_step_vs_cpu(
+                init, batch_fn(0, 0), spec, W1A4)
+            _lib.reset_launches()
+            golden = make("golden")
+            golden.train(c["steps"])
+            fails = set(TRAIN_CNN_FAILS)
+            chaotic, out, restarts = run_with_failures(
+                lambda: make("chaotic", fails), c["steps"])
+            torch.cuda.synchronize()
+        train_launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        check(restarts == len(TRAIN_CNN_FAILS) and not fails,
+              f"train: {restarts} restarts for {len(TRAIN_CNN_FAILS)} faults")
+        check(all(a.device.type == "cuda" and torch.equal(a, b)
+                  for a, b in zip(tree_leaves(golden.params),
+                                  tree_leaves(chaotic.params))),
+              "train: the chaotic CNN run's params differ from the golden "
+              "run's")
+        check(not train_launches,
+              f"train: CNN training launched port kernels {train_launches}")
+        line["cnn_intermittent"] = dict(
+            spec=f"svhn_cnn_spec({c['channels']})", quant="w1a4",
+            batch=c["batch"], steps=c["steps"], accum_steps=4,
+            faults=sorted(TRAIN_CNN_FAILS), restarts=restarts,
+            bit_identical=True, final_loss=out["loss"],
+            seconds=time.perf_counter() - t0)
+
+        # (2) the trained CNN served on the card's kernels
+        trained = [{k: v.detach() for k, v in p.items()}
+                   for p in chaotic.params]
+        compiled = api.build(spec, W1A4, params=trained,
+                             img_hw=40).compile(target="cuda")
+        x, y = svhn_like(c["images"], seed=99)
+        xt = torch.from_numpy(x).to(dev)
+        _lib.reset_launches()
+        logits = compiled.forward(xt)
+        torch.cuda.synchronize()
+        serve_launches = dict(_lib.LAUNCHES)
+        ref = compiled.forward(xt, reference=True)
+        check({k: v for k, v in serve_launches.items() if v}
+              == TRAIN_SERVE_LAUNCHES,
+              f"train: the served CNN launched {serve_launches}, not "
+              f"{TRAIN_SERVE_LAUNCHES}")
+        check(torch.equal(logits, ref),
+              "train: the served CNN differs from the plain versions")
+        with torch.no_grad():
+            float_logits = cnn.cnn_forward(trained, xt, spec, W1A4)
+        line["handoff"] = dict(
+            launches={k: v for k, v in serve_launches.items() if v},
+            bit_identical_to_plain=True,
+            served_acc=float((logits.argmax(-1).cpu().numpy() == y).mean()),
+            train_forward_acc=float(
+                (float_logits.argmax(-1).cpu().numpy() == y).mean()))
+        del golden, chaotic, trained, compiled
+
+        # (3) SmolLM-360M at full width
+        L = TRAIN_LM
+        cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+        lm_dir = os.path.join(root, "lm")
+        ocfg = OptConfig(lr=L["lr"], warmup_steps=L["warmup"],
+                         total_steps=L["steps"])
+
+        def lm_fn(s, m):
+            return lm_batch(s, m, batch=L["batch"], seq=L["seq"],
+                            vocab=L["data_vocab"], seed=0)
+
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, SINGLE, ocfg,
+                     TrainConfig(steps=L["steps"], log_every=1,
+                                 ckpt_every=L["ckpt_every"]),
+                     ckpt_dir=lm_dir, device=dev)
+        n_params = sum(p.numel() for p in tree_leaves(tr.params))
+        step_ms = []
+        inner = tr.train_step
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = inner(batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            return m
+
+        tr.train_step = timed_step
+        _lib.reset_launches()
+        hist = tr.run(lm_fn, log=lambda *_: None)
+        lm_launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        tr.train_step = inner
+        losses = [h["loss"] for h in hist]
+        check(len(losses) == L["steps"]
+              and all(np.isfinite(v) for v in losses),
+              f"train: SmolLM losses {losses}")
+        line["smollm_losses"] = losses
+        check(losses[-1] < losses[0],
+              f"train: SmolLM loss did not fall ({losses[0]} -> "
+              f"{losses[-1]})")
+        check(not lm_launches,
+              f"train: LM training launched port kernels {lm_launches}")
+        check(Checkpointer(lm_dir).latest_step() == L["steps"],
+              "train: no checkpoint at the last step")
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, SINGLE, ocfg, TrainConfig(steps=L["steps"]),
+                      ckpt_dir=lm_dir, device=dev)
+        check(tr2.restore() and tr2.step == L["steps"],
+              "train: a fresh trainer did not restore the last step")
+        check(all(b.device.type == "cuda" and torch.equal(a, b)
+                  for a, b in zip(tree_leaves(tr.params),
+                                  tree_leaves(tr2.params))),
+              "train: the restored SmolLM params differ")
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(tr.opt_state), tree_leaves(tr2.opt_state))),
+              "train: the restored optimizer state differs")
+        restore_s = time.perf_counter() - t0
+        del tr2
+        torch.cuda.empty_cache()
+        batch = to_device(lm_fn(L["steps"], 0), dev)
+        prof = profile_forward(lambda: tr.train_step(batch), 1)
+        del tr
+        torch.cuda.empty_cache()
+        n = L["steps"] + L["compressed_steps"]
+        tr3 = Trainer(cfg, SINGLE, ocfg,
+                      TrainConfig(steps=n, log_every=1, ckpt_every=10_000,
+                                  compress_grads=True),
+                      ckpt_dir=lm_dir, device=dev)
+        check(tr3.restore(), "train: the compressed run did not restore")
+        chist = tr3.run(lm_fn, log=lambda *_: None)
+        check([h["step"] for h in chist] == list(range(L["steps"] + 1, n + 1))
+              and all(np.isfinite(h["loss"]) for h in chist),
+              f"train: compressed steps {chist}")
+        del tr3
+        timed = step_ms[L["timed_from"] - 1:]
+        line["smollm"] = dict(
+            arch="smollm-360m", quant="w1a8", params=n_params,
+            compute_dtype=str(cfg.compute_dtype), remat=cfg.remat,
+            batch=L["batch"], seq=L["seq"], data_vocab=L["data_vocab"],
+            steps=L["steps"], loss_first=losses[0], loss_last=losses[-1], losses=losses,
+            ms_per_step_median=float(np.median(timed)),
+            ms_per_step_min=float(np.min(timed)),
+            ms_per_step_steps=f"{L['timed_from']}-{L['steps']}",
+            run_s=run_s, restore_s=restore_s, restore_bit_identical=True,
+            compressed_losses=[h["loss"] for h in chist],
+            one_step_profile=prof)
+        line["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    except BaseException:
+        print("TRAIN-PARTIAL", json.dumps(line, default=str), flush=True)
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["seconds"] = time.perf_counter() - t_phase
+    print("TRAIN", json.dumps(line), flush=True)
+    return line
+
+
 def bucket_step_profile(params, cfg, layers, batch: int, prompt_len: int,
                         new: int) -> dict:
     """One bucket decode step (``batch`` rows at position ``prompt_len``,
@@ -3193,8 +3569,8 @@ def profile_forward(fn, iters: int) -> dict:
                           calls_per_forward=e.count / iters) for e in top])
 
 
-def kernels_line(summary: dict, launches: dict, fam: dict | None = None
-                 ) -> dict:
+def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
+                 train: dict | None = None) -> dict:
     meta = {
         "fused_qgemm": ("src/repro_torch/csrc/fused_qgemm.cu",
                         "src/repro/kernels/fused_qgemm.py:134",
@@ -3252,6 +3628,9 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
                                                for r in rows
                                                if "device_ops_per_call" in r)
+        if train is not None:
+            # the train phase's handoff: the trained svhn CNN served once
+            entry["launches_train_handoff"] = train.get(name, 0)
         if fam is not None and name in ATTN_MAX_DEVICE_OPS:
             entry["launches_families"] = {
                 a["arch"]: n for a in fam["archs"]
@@ -3341,8 +3720,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet_phase(card)
     print(f"FLEET PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train = train_phase(card)
+    print(f"TRAIN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernels_line(summary, launches, dict(
-        archs=fam["archs"] + mod["archs"]))))
+        archs=fam["archs"] + mod["archs"]), train["handoff"]["launches"])))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ the fields their layers read (the encoder's frame input and the VLM's
 patch embeddings among them), the derived sizes (``hd``,
 ``padded_vocab``, ``blocks_pattern``), ``smoke()`` for the CPU tests
 (reducing every field as the reference's does), and the single-device
-sharding plan with its head padding.  The reference's shape cells
-(``ShapeCell``, ``SHAPES``, ``skip_shapes``) and its training and
-analysis toggles are left out: nothing in the port reads them.
+sharding plan with its head padding, the reference's shape cells
+(``ShapeCell``, ``SHAPES``: the abstract batches of ``launch.steps``),
+and the training toggle the port reads (``remat``: recompute each
+block's activations in the backward).  The reference's analysis and
+hill-climb toggles (``ce_where_mask`` among them) and ``skip_shapes`` are
+left out: nothing in the port reads them.
 """
 from __future__ import annotations
 
@@ -19,6 +22,24 @@ import torch
 from repro_torch.core.quant import FP32, QuantConfig
 
 VOCAB_PAD = 256  # pad vocab to a multiple of this (divisible by TP=16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned input-shape cell."""
+
+    name: str          # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +85,8 @@ class ArchConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     banded_attn: bool = False
+    # training
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -84,7 +107,7 @@ class ArchConfig:
 
     def smoke(self, **overrides) -> "ArchConfig":
         """Reduced same-family config for CPU tests (the reference's smoke
-        geometry: float32 compute)."""
+        geometry: float32 compute, no remat)."""
         changes = dict(
             name=self.name + "-smoke",
             n_layers=max(2, 2 * len(self.pattern)),
@@ -102,6 +125,7 @@ class ArchConfig:
             lora_rank=8,
             window=min(self.window, 64) if self.window else None,
             compute_dtype=torch.float32,
+            remat=False,
         )
         changes.update(overrides)
         return dataclasses.replace(self, **changes)

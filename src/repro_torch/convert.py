@@ -14,6 +14,13 @@ levels, "s": (L,) float32, "z": (L,) float32}``, the rest float32 — the
 encoder's ``frame_proj`` (its tree has no ``embed``) and the VLM's
 ``vision_proj`` among them.
 
+Training takes float params: :func:`cnn_train_params_from_numpy` and
+:func:`lm_train_params_from_numpy` carry them across as float32 leaf
+tensors that require grad, and :func:`cnn_params_to_numpy` /
+:func:`lm_params_to_numpy` bring a tree (params, gradients, optimizer
+moments) back to numpy in the reference's layout, so a test compares it
+with the reference leaf by leaf.
+
 A CNN or LM plan the reference's ``save_plan`` wrote is the port's second
 source of weights (:func:`plan_from_reference`).
 """
@@ -64,6 +71,52 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
                 for k, v in tree.items()}
 
     return walk(params)
+
+
+def _train_leaf(v, device) -> torch.Tensor:
+    a = np.asarray(v)
+    if not np.issubdtype(a.dtype, np.floating):
+        raise ValueError(f"training takes float params; got a {a.dtype} "
+                         f"leaf (prequantized levels?)")
+    return torch.from_numpy(np.array(a, np.float32)).to(
+        device).requires_grad_()
+
+
+def cnn_train_params_from_numpy(params, device="cuda") -> list[dict]:
+    """The reference's float CNN params (``init_cnn``: per-layer ``w`` HWIO,
+    ``b``, ``g``, ``beta``) -> float32 leaf tensors on ``device`` that
+    require grad."""
+    return [{k: _train_leaf(v, device) for k, v in p.items()}
+            for p in params]
+
+
+def lm_train_params_from_numpy(params, device="cuda") -> dict:
+    """The reference's float LM params (``init_lm``) -> the same tree of
+    float32 leaf tensors on ``device`` that require grad."""
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else _train_leaf(v, device))
+                for k, v in tree.items()}
+
+    return walk(params)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu").numpy()
+    return np.asarray(leaf)
+
+
+def cnn_params_to_numpy(params) -> list[dict]:
+    """A port CNN tree (params, or their gradients) -> the reference's
+    layout in numpy: a list of per-layer dicts."""
+    return [{k: _to_numpy(v) for k, v in p.items()} for p in params]
+
+
+def lm_params_to_numpy(params) -> dict:
+    """A port LM tree (params, gradients, optimizer moments) -> the same
+    nested dicts of numpy arrays, the reference's tree."""
+    return {k: (lm_params_to_numpy(v) if isinstance(v, dict)
+                else _to_numpy(v)) for k, v in params.items()}
 
 
 def _relabel(key: tuple, at: int) -> tuple:

@@ -122,13 +122,49 @@ def quant_conv2d_pre(x: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                                 w_planes=w_planes, reference=reference)
 
 
+class ConvGemmWeightGrad(torch.autograd.Function):
+    """``F.conv2d`` (NCHW x, OIHW w, no padding) whose weight gradient is
+    one fp32 GEMM over the im2col patches.  cuDNN's deterministic
+    weight-gradient algorithms, which the bit-identical trainers need,
+    lose 1.4e-3 x max|g| on the svhn CNN's 5x5 first layer against a
+    float64 gradient (``train_precision.py``: H100, cuDNN 9.2); the GEMM
+    keeps every layer within 1.5e-6, as the CPU.  The input gradient is
+    cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, gy,
+                                            stride=ctx.stride)
+        if ctx.needs_input_grad[1]:
+            cout, b = w.shape[0], x.shape[0]
+            cols = F.unfold(x, w.shape[2:], stride=ctx.stride)  # (B, K, L)
+            gw = (gy.reshape(b, cout, -1).permute(1, 0, 2).reshape(cout, -1)
+                  @ cols.permute(0, 2, 1).reshape(-1, cols.shape[1]))
+            gw = gw.reshape(w.shape)
+        return gx, gw, None
+
+
 def conv2d_float(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  padding: str = "SAME") -> torch.Tensor:
-    """fp conv (the fp first/last layers): NHWC x, HWIO w -> NHWC.  Runs in
-    full fp32 (TF32 is switched off in ``repro_torch/__init__.py``)."""
+    """fp conv (the fp first/last layers, and every training conv): NHWC
+    x, HWIO w -> NHWC.  Runs in full fp32 (TF32 is switched off in
+    ``repro_torch/__init__.py``); under autograd the weight gradient is
+    :class:`ConvGemmWeightGrad`'s GEMM."""
     kh, kw = w.shape[0], w.shape[1]
     x = _pad_nhwc(x, pad_split(x.shape[1], x.shape[2], kh, kw, stride,
                                padding))
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=stride)
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = ConvGemmWeightGrad.apply(xc, wc, stride)
+    else:
+        y = F.conv2d(xc, wc, stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()

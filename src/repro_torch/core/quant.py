@@ -3,18 +3,25 @@
 The bit-width config, the integer-level views consumed by the level GEMM
 (unsigned for the CNN, affine-signed for transformer activations), the
 float activation quantizer applied after each hidden CNN layer, and the
-fake-quant (train-mode) forms the LM's float-weight projections take:
-:func:`quantize_weight` and :func:`fake_quant_act_signed`, whose forward
-value is the reference's straight-through ``x + (q - x)``, computed as
-written (it is not always ``q`` in float32).  There is no backward
-pass: the port serves.  ``torch.round`` rounds half to
-even, exactly as ``jnp.round`` does; the CUDA kernels use ``rintf`` (the
-same rounding), never ``roundf``.
+fake-quant (train-mode) forms the LM's float-weight projections and the
+CNN's training convolutions take: :func:`quantize_weight`,
+:func:`quantize_activation` and :func:`fake_quant_act_signed`, each the
+reference's straight-through estimator ``x + stop_gradient(q - x)``
+(here ``x + (q - x).detach()``: its forward value computed as written,
+which is not always ``q`` in float32, and its gradient the identity),
+and :func:`quantize_gradient`, DoReFa's stochastic k-bit gradient
+quantizer (identity forward).  :func:`clip01` is ``jnp.clip(x, 0, 1)``
+with the reference's gradient at the bounds: ``jax.grad`` of the clip
+gives 0.5 at exactly 0 and 1 (``max``/``min`` split ties), where
+``torch.clamp`` gives 1.  ``torch.round`` rounds half to even, exactly
+as ``jnp.round`` does; the CUDA kernels use ``rintf`` (the same
+rounding), never ``roundf``.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -55,17 +62,52 @@ PAPER_CONFIGS = {"w32a32": FP32, "w1a1": W1A1, "w1a4": W1A4, "w1a8": W1A8,
                  "w2a2": W2A2}
 
 
+class _Clip01(torch.autograd.Function):
+    """``clamp(x, 0, 1)`` whose gradient is 1 inside, 0.5 at exactly 0 or
+    1 and 0 outside — the gradient ``jax.grad`` gives ``jnp.clip``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = ((x > 0) & (x < 1)).to(g.dtype)
+        edge = ((x == 0) | (x == 1)).to(g.dtype)
+        return g * (inside + 0.5 * edge)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``clamp(x, 0, 1)``; under autograd with the reference's gradient at
+    the bounds (:class:`_Clip01`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Clip01.apply(x)
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The reference's straight-through estimator ``x + stop_gradient(q -
+    x)``: forward ``q`` through two float roundings, as XLA computes it;
+    gradient the identity."""
+    return x + (q - x).detach()
+
+
 def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """DoReFa quantize_k: x in [0,1] -> k-bit levels in [0,1] (float)."""
+    """DoReFa quantize_k: x in [0,1] -> k-bit levels in [0,1] (STE).  For
+    x in [0,1] the forward value is ``round(x n) / n`` exactly: q and x
+    lie within a factor of two, so ``q - x`` and ``x + (q - x)`` are
+    exact."""
     n = (1 << bits) - 1
-    return torch.round(x * n) / n
+    return _ste(x, torch.round(x * n) / n)
 
 
 def quantize_activation(a: torch.Tensor, bits: int) -> torch.Tensor:
-    """DoReFa activation quantizer: clip to [0,1] then k-bit."""
+    """DoReFa activation quantizer: clip to [0,1] then k-bit (STE)."""
     if bits >= 32:
         return a
-    return quantize_k(torch.clamp(a, 0.0, 1.0), bits)
+    return quantize_k(clip01(a), bits)
 
 
 def activation_levels(a: torch.Tensor, bits: int):
@@ -129,15 +171,8 @@ def activation_levels_signed_row(a: torch.Tensor, bits: int):
             torch.tensor(z, dtype=a.dtype, device=a.device))
 
 
-def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The forward value of the reference's straight-through estimator,
-    ``x + stop_gradient(q - x)``: two float roundings, as XLA computes
-    it."""
-    return x + (q - x)
-
-
 def quantize_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
-    """DoReFa weight quantizer (float output, the STE forward value).
+    """DoReFa weight quantizer (float output, STE).
 
     1-bit:  ``sign(w) * mean|w|`` (XNOR-Net style scaled binarization);
     k-bit:  ``2 * quantize_k(tanh(w) / (2 max|tanh(w)|) + 1/2) - 1``.
@@ -150,18 +185,67 @@ def quantize_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
         return _ste(w, torch.where(w >= 0, alpha, -alpha))
     t = torch.tanh(w)
     t = t / (2.0 * torch.max(torch.abs(t)) + 1e-12) + 0.5
-    n = (1 << bits) - 1
-    return 2.0 * _ste(t, torch.round(t * n) / n) - 1.0
+    return 2.0 * quantize_k(t, bits) - 1.0
 
 
 def fake_quant_act_signed(a: torch.Tensor, bits: int) -> torch.Tensor:
     """The float view of :func:`activation_levels_signed` (per-tensor
-    absmax), STE forward value: ``a + (q - a)`` with
+    absmax, the scale taken without gradient), STE: ``a + (q - a)`` with
     ``q = (clip(round(a / s) + z, 0, 2^b - 1) - z) * s``."""
     if bits >= 32:
         return a
     n = (1 << bits) - 1
     z = float(1 << (bits - 1))
-    s = torch.max(torch.abs(a)) / z + 1e-12
+    s = torch.max(torch.abs(a)).detach() / z + 1e-12
     q = (torch.clamp(torch.round(a / s) + z, 0, n) - z) * s
     return _ste(a, q)
+
+
+class _QuantizeGradient(torch.autograd.Function):
+    """Identity forward; the backward quantizes the incoming gradient to
+    ``bits`` (the reference's ``_qg_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, bits, generator):
+        ctx.bits, ctx.generator = bits, generator
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return quantize_gradient_values(g, ctx.bits, ctx.generator), None, None
+
+
+def quantize_gradient_values(g: torch.Tensor, bits: int,
+                             generator: torch.Generator | None = None
+                             ) -> torch.Tensor:
+    """DoReFa Eq. 12 on a gradient ``g``: scaled by ``2 max|g|`` into
+    [0, 1], uniform noise of one level's width added when ``generator`` is
+    given (none without: the reference's ``key=None``), rounded to
+    ``2^bits - 1`` levels and scaled back, as the reference's jitted
+    backward rounds it.  The noise is drawn on ``g``'s
+    device from ``generator`` (which must live there), in place of the
+    reference's JAX key."""
+    if bits >= 32:
+        return g
+    n = (1 << bits) - 1
+    mx = 2.0 * torch.max(torch.abs(g)) + 1e-12
+    gn = g / mx + 0.5
+    if generator is not None:
+        u = torch.rand(g.shape, generator=generator, dtype=g.dtype,
+                       device=g.device)
+        gn = gn + (u - 0.5) / n
+    r = torch.clamp(torch.round(gn * n), 0, n)
+    # the reference's jitted backward computes q - 0.5 as one FMA,
+    # fma(r, f32(1/n), -0.5); r * f32(1/n) - 0.5 is exact in float64, so
+    # one rounding from float64 gives the same value
+    c = float(np.float32(1.0 / n))
+    q = (r.double() * c - 0.5).to(g.dtype)
+    return mx * q
+
+
+def quantize_gradient(x: torch.Tensor, bits: int,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+    """Identity forward; the backward quantizes the incoming gradient to
+    ``bits`` (:func:`quantize_gradient_values`)."""
+    return _QuantizeGradient.apply(x, bits, generator)

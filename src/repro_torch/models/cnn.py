@@ -1,4 +1,4 @@
-"""The paper's CNN models (port of the serve half of ``repro/models/cnn.py``).
+"""The paper's CNN models (port of ``repro/models/cnn.py``).
 
 * ``svhn_cnn`` — 6 conv + 2 average-pool + 2 FC layers (FCs as 1x1
   convolutions), for 40x40 SVHN digits; first and last layers stay full
@@ -6,8 +6,13 @@
 * ``alexnet`` — binary-weight AlexNet for the ImageNet rows.
 
 Serve mode walks a compiled plan (:mod:`repro_torch.core.plan`); this
-module holds the specs, the seeded initializer and the per-layer serve
-pieces the plan executor applies between convolutions.
+module holds the specs, the seeded initializer, the per-layer pieces the
+plan executor applies between convolutions, and the training forward:
+:func:`cnn_forward` in ``mode="train"`` (the DoReFa fake-quant conv on
+straight-through weights, batch statistics in the norm, optional k-bit
+gradient quantization) and :func:`cnn_loss`.  Training launches no port
+kernel: its convolutions are float (``conv2d_float``), as the
+reference's are.
 """
 from __future__ import annotations
 
@@ -19,7 +24,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QuantConfig, quantize_activation
+from repro_torch.core.conv_lowering import conv2d_float
+from repro_torch.core.prequant import is_fp_layer
+from repro_torch.core.quant import (QuantConfig, clip01, quantize_activation,
+                                    quantize_gradient, quantize_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,15 +91,16 @@ def init_cnn(generator: torch.Generator, spec: Sequence[ConvSpec],
 
 def _norm_act(x: torch.Tensor, g, beta, quant: QuantConfig, role: str,
               mode: str = "serve") -> torch.Tensor:
-    """Per-channel norm + bounded activation, serve form: PER-SAMPLE
+    """Per-channel norm + bounded activation (clip to [0,1], then the
+    DoReFa activation quantizer).  Serve mode takes PER-SAMPLE
     (spatial-only) statistics, so a request's output never depends on its
-    batchmates.  ``jnp.var`` is the population variance (correction=0)."""
-    if mode != "serve":
-        raise ValueError("the port implements the serve forward only")
-    mu = torch.mean(x, dim=(1, 2), keepdim=True)
-    var = torch.var(x, dim=(1, 2), keepdim=True, correction=0)
+    batchmates; train mode takes batch statistics over (B, H, W).
+    ``jnp.var`` is the population variance (correction=0)."""
+    dims = (1, 2) if mode == "serve" else (0, 1, 2)
+    mu = torch.mean(x, dim=dims, keepdim=True)
+    var = torch.var(x, dim=dims, keepdim=True, correction=0)
     x = (x - mu) * torch.rsqrt(var + 1e-5) * g + beta
-    x = torch.clamp(x, 0.0, 1.0)
+    x = clip01(x)
     if role == "last" or quant.engine == "fp":
         return x
     return quantize_activation(x, quant.a_bits)
@@ -138,3 +147,75 @@ def resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
     mh = _resize_weights(x.shape[1], size, x.device)
     mw = _resize_weights(x.shape[2], size, x.device)
     return torch.einsum("bhwc,hi,wj->bijc", x, mh, mw)
+
+
+def cnn_forward(params, x: torch.Tensor, spec: Sequence[ConvSpec],
+                quant: QuantConfig, mode: str = "train",
+                g_gen: torch.Generator | None = None) -> torch.Tensor:
+    """The training forward: x (B,H,W,3) in [0,1] -> logits (B, classes).
+
+    Each layer: the float conv (fp layers) or the fake-quant conv on
+    :func:`quantize_weight`'s straight-through weights (the input is
+    already quantized by the previous norm-act); with ``g_gen``, the
+    k-bit gradient quantizer after every non-fp layer (its noise drawn
+    from ``g_gen``, layer after layer, where the reference folds the layer
+    index into its key); bias; the train-mode norm-act on all but the last
+    layer; the 2x2 average pool; an FC layer over a larger map first
+    resizes it to k x k; finally the global mean.  Serve mode runs a
+    compiled plan: ``api.build(spec, quant, params=...).compile()``."""
+    if mode != "train":
+        raise ValueError(
+            f"cnn_forward runs the training forward; mode {mode!r} is served "
+            f"through a compiled plan (api.build(...).compile().forward)")
+    h = x
+    for i, (p, s) in enumerate(zip(params, spec)):
+        h = cnn_layer(p, s, h, quant, i == len(spec) - 1, g_gen)
+    return torch.mean(h, dim=(1, 2))
+
+
+def conv_bias(p, s: ConvSpec, h: torch.Tensor, quant: QuantConfig,
+              g_gen: torch.Generator | None = None) -> torch.Tensor:
+    """A training layer up to its norm: the FC resize, the conv (fake-quant
+    weights unless an fp layer), the gradient quantizer with ``g_gen``,
+    the bias."""
+    pad = "VALID" if (s.fc or s.k == 1) else "SAME"
+    if s.fc and s.k > 1 and h.shape[1] != s.k:
+        h = resize_linear(h, s.k)
+    fp_layer = is_fp_layer(s, quant)
+    w = p["w"] if fp_layer else quantize_weight(p["w"], quant.w_bits)
+    h = conv2d_float(h, w, stride=s.stride, padding=pad)
+    if g_gen is not None and not fp_layer:
+        h = quantize_gradient(h, quant.g_bits, g_gen)
+    return h + p["b"]
+
+
+def cnn_layer(p, s: ConvSpec, h: torch.Tensor, quant: QuantConfig,
+              last: bool, g_gen: torch.Generator | None = None
+              ) -> torch.Tensor:
+    """One layer of :func:`cnn_forward`: :func:`conv_bias`, the train-mode
+    norm-act unless ``last``, the pool."""
+    h = conv_bias(p, s, h, quant, g_gen)
+    if not last:
+        h = _norm_act(h, p["g"], p["beta"], quant, s.role, "train")
+    if s.pool:
+        h = avg_pool2(h)
+    return h
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean softmax cross-entropy and accuracy of ``logits`` (B, classes)
+    against integer ``labels`` (B,) -> ``(loss, {"loss", "acc"})``."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.mean(torch.gather(logp, 1, labels[:, None]))
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, dict(loss=loss, acc=acc)
+
+
+def cnn_loss(params, batch: dict, spec: Sequence[ConvSpec],
+             quant: QuantConfig, g_gen: torch.Generator | None = None):
+    """Softmax cross-entropy of the training forward on ``batch``
+    (``image`` (B,H,W,3), ``label`` (B,) int) -> ``(loss, {"loss",
+    "acc"})``."""
+    return xent(cnn_forward(params, batch["image"], spec, quant, "train",
+                            g_gen), batch["label"])

@@ -54,7 +54,8 @@ def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
     matmul on fp configs and on first/last layers kept fp; otherwise
     ``mode="train"`` is the fake-quant product (per-tensor signed
     activation levels times the DoReFa weight, both in their float
-    straight-through form ``x + (q - x)``), and ``mode="serve"`` quantizes
+    straight-through form ``x + stop_gradient(q - x)``, so differentiable
+    with the reference's gradients), and ``mode="serve"`` quantizes
     the weight here and runs the signed level GEMM
     (:func:`~repro_torch.core.and_accum.quant_dense_forward_signed`)."""
     if isinstance(w, dict):
@@ -326,8 +327,13 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
                   reference: bool = False, rope_cs=None, rows=None):
     """Returns ``(out, (k, v, pos))``.
 
-    ``mode``: ``'prefill'`` (contiguous positions from ``pos_offset``, the
-    new cache entries returned), ``'decode'`` (S == 1 at the Python int
+    ``mode``: ``'train'`` (the prefill computation with no cache: the
+    cache parts are None; ``qmode='train'`` never resolves ``flash``, as
+    the reference's train mode never quantizes attention, and ``flash``
+    has no backward, so differentiating through it raises),
+    ``'prefill'`` (contiguous positions from
+    ``pos_offset``, the new cache entries returned), ``'decode'`` (S == 1
+    at the Python int
     ``pos_offset``, written into the cache slot in place; always the
     ``full`` engine) or ``'paged'`` (the continuous-batching path: the
     cache arguments are the page pools, ``cache_table`` the (B, P) page
@@ -359,7 +365,10 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
         q_pos = pos_offset + torch.arange(S, device=x.device)
         k_roped = rope(k, q_pos, cfg.rope_theta, rope_cs)
         q = rope(q, q_pos, cfg.rope_theta, rope_cs)
-        if mode == "prefill":
+        if mode == "train":
+            kv, vv, kv_pos = k_roped, v, q_pos
+            new_cache = (None, None, None)
+        elif mode == "prefill":
             kv, vv, kv_pos = k_roped, v, q_pos
             new_cache = (k_roped, v, q_pos[None].expand(B, S).to(torch.int32))
         elif mode == "decode":
@@ -371,8 +380,8 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
             kv, vv, kv_pos = cache_k, cache_v, cache_pos[0]
             new_cache = (cache_k, cache_v, cache_pos)
         else:
-            raise ValueError(f"attention mode {mode!r} is not served "
-                             f"(prefill | decode | paged)")
+            raise ValueError(f"unknown attention mode {mode!r} "
+                             f"(train | prefill | decode | paged)")
         kv, vv = expand_kv(kv, vv, cfg.n_heads, hp)
         if mode == "decode":
             engine = "full"
@@ -388,6 +397,11 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
             # geometries take the position-indexed chunked scan below
             from repro_torch.kernels.attn_flash import attn_flash
 
+            if torch.is_grad_enabled() and q.requires_grad:
+                raise RuntimeError(
+                    "the flash attention engine has no backward: "
+                    "differentiate with qmode='train' (never flash) or run "
+                    "the serve forward under torch.no_grad()")
             bits = min(cfg.quant.a_bits, 8)
             out = attn_flash(q, kv, vv, causal=bool(causal), window=window,
                              q_bits=bits, k_bits=bits,

@@ -21,12 +21,20 @@ for the attention kinds (an 'attn_local' cache has ``min(window,
 max_len)`` slots), float32 ``h``/``conv`` for 'rec', ``tm_x``/``cm_x``
 (compute dtype) and float32 ``s`` for 'rwkv'.  Decode and paged steps
 update the cache they are given in place, recurrent state included.
+
+Train mode (``forward(mode="train")``, :func:`lm_loss`) runs the prefill
+computation with no cache and no state returned, every projection the
+fake-quant product with straight-through gradients, and sums the MoE
+layers' load-balancing aux loss; ``cfg.remat`` recomputes each block in
+the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per period).  It launches no port kernel.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import rglru, rwkv6
 from .layers import (attention_fwd, dense_init, init_attention, init_mlp,
@@ -161,6 +169,14 @@ def init_paged_cache(cfg, plan, num_slots: int, num_pages: int,
                          dtype=torch.int32, device=device))}
 
 
+def _unbind(tree):
+    """Each stacked leaf split along its layer axis once (one backward
+    node a leaf, where indexing it per layer would make one each)."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return torch.unbind(tree)
+
+
 def _slice(tree, i: int):
     if isinstance(tree, dict):
         return {k: _slice(v, i) for k, v in tree.items()}
@@ -184,12 +200,53 @@ def unstack_layers(params, cfg) -> list:
     if bad:
         raise NotImplementedError(f"block kinds {bad} are not ported")
     seen: dict[str, int] = {}
+    split = {kind: _unbind(tree) for kind, tree in params["blocks"].items()}
     views = []
     for kind in cfg.blocks_pattern:
         i = seen.get(kind, 0)
         seen[kind] = i + 1
-        views.append(LayerView(kind, i, _slice(params["blocks"][kind], i)))
+        views.append(LayerView(kind, i, _slice(split[kind], i)))
     return views
+
+
+def _train_block(p, h, cfg, plan, qmode: str, rope_cs):
+    """One layer of the training forward -> ``(h, aux)``."""
+    kind = p.kind
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind in ATTN_KINDS:
+        window = cfg.window if kind == "attn_local" else None
+        att, _ = attention_fwd(p["attn"], h, cfg, plan, mode="train",
+                               qmode=qmode, window=window, rope_cs=rope_cs)
+        h = h + att
+        if kind == "moe":
+            y, aux = moe_fwd(p["moe"], h, cfg)
+            return h + y, aux
+        return h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode), aux
+    if kind == "rec":
+        out, _ = rglru.rec_block_fwd(p["rec"], h, cfg, plan, mode="train")
+        h = h + out
+        return h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode), aux
+    h, _ = rwkv6.rwkv_block_fwd(p, h, cfg, plan, mode="train")
+    return h, aux
+
+
+def _run_blocks_train(h, cfg, plan, layers, qmode: str):
+    """The training layer stack -> ``(h, aux summed over layers)``; with
+    ``cfg.remat`` each block is recomputed in the backward."""
+    S = h.shape[1]
+    rope_cs = None
+    if any(lv.kind in ATTN_KINDS for lv in layers):
+        rope_cs = rope_tables(torch.arange(S, device=h.device), cfg.hd,
+                              cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            h, a = checkpoint(_train_block, p, h, cfg, plan, qmode, rope_cs,
+                              use_reentrant=False)
+        else:
+            h, a = _train_block(p, h, cfg, plan, qmode, rope_cs)
+        aux = aux + a
+    return h, aux
 
 
 def run_blocks(params, h, cfg, plan, *, mode: str, pos_offset=0, cache=None,
@@ -198,8 +255,13 @@ def run_blocks(params, h, cfg, plan, *, mode: str, pos_offset=0, cache=None,
     """The layer stack as a Python loop, dispatching on each layer's kind
     as the reference's ``_run_block`` does.  Returns ``(h, new_cache)``:
     prefill returns the stacked new cache, decode and paged steps the
-    cache they updated in place."""
+    cache they updated in place; train mode returns ``(h, aux)``, the
+    summed aux loss in place of a cache."""
     layers = layers if layers is not None else unstack_layers(params, cfg)
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("train mode runs without a cache")
+        return _run_blocks_train(h, cfg, plan, layers, qmode)
     S = h.shape[1]
     rows = rope_cs = None
     if any(lv.kind in ATTN_KINDS for lv in layers):
@@ -299,13 +361,44 @@ def forward(params, cfg, plan, *, tokens=None, patch_embeds=None,
             pos_offset=0, qmode: str = "serve", valid_len=None, layers=None,
             reference: bool = False):
     """Full forward -> ``(logits float32 (B, S, padded_vocab), cache)``;
-    S counts the prepended patches."""
+    S counts the prepended patches.  In ``mode="train"`` the second
+    element is the summed aux loss (there is no cache)."""
     h = embed_inputs(params, cfg, tokens, patch_embeds, frame_feats)
     h, new_cache = run_blocks(params, h, cfg, plan, mode=mode,
                               pos_offset=pos_offset, cache=cache, qmode=qmode,
                               valid_len=valid_len, layers=layers,
                               reference=reference)
     return unembed(params, cfg, h), new_cache
+
+
+def lm_loss(params, batch: dict, cfg, plan, qmode: str = "train"):
+    """Next-token (or frame-classification) cross-entropy of the training
+    forward -> ``(loss + aux, {"loss", "aux", "acc"})``.  ``batch`` holds
+    ``labels`` (B, S) and ``tokens``, ``frame_feats`` and/or
+    ``patch_embeds`` per family; a VLM's loss covers its text positions
+    only.  The vocab padding is masked at -1e30; labels outside
+    [0, vocab) are left out of the loss and the accuracy.  The label's
+    log-probability is picked by a gather, equal to the reference's
+    one-hot contraction exactly (one nonzero term)."""
+    logits, aux = forward(params, cfg, plan, tokens=batch.get("tokens"),
+                          patch_embeds=batch.get("patch_embeds"),
+                          frame_feats=batch.get("frame_feats"),
+                          mode="train", qmode=qmode)
+    labels = batch["labels"].long()
+    if cfg.n_patches:
+        logits = logits[:, cfg.n_patches:]
+    vp = logits.shape[-1]
+    if vp > cfg.vocab:
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad[None, None], -1e30, logits)
+    valid = (labels >= 0) & (labels < cfg.vocab)
+    labels_c = torch.clamp(labels, 0, cfg.vocab - 1)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
+    n = torch.clamp(valid.sum(), min=1)
+    loss = -torch.where(valid, ll, 0.0).sum() / n
+    acc = (valid & (torch.argmax(logits, -1) == labels_c)).sum() / n
+    return loss + aux, dict(loss=loss, aux=aux, acc=acc)
 
 
 def prefill(params, cfg, plan, *, tokens=None, patch_embeds=None,

@@ -60,13 +60,17 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 def _from_host(arr: np.ndarray, like, device):
     """``arr`` in the type of the template leaf ``like``: a tensor of its
-    dtype on ``device``, a numpy array of its dtype, or a Python number."""
+    dtype on ``device`` (None: on ``like``'s device, the CPU for a meta
+    leaf), a numpy array of its dtype, or a Python number."""
     if torch.is_tensor(like):
+        # np.ascontiguousarray would make a 0-d array 1-d
+        arr = np.require(arr, requirements="C")
         if like.dtype == torch.bfloat16:
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-            t = t.view(torch.bfloat16)
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.dtype)
+            t = torch.from_numpy(arr).to(like.dtype)
+        if device is None:   # a meta template describes, it holds nothing
+            device = "cpu" if like.device.type == "meta" else like.device
         return t.to(device)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
@@ -179,10 +183,13 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                tag: str = "ckpt", device="cpu"):
+                tag: str = "ckpt", device=None):
         """Returns (step, state) or (None, None) when nothing is there.
         ``template`` supplies the tree's structure and leaf types (shapes
-        come from the stored arrays); tensors land on ``device``."""
+        come from the stored arrays); each tensor lands on ``device``, or
+        with no ``device`` on its template leaf's device (a trainer on the
+        card restores onto the card; a meta leaf restores onto the
+        CPU)."""
         step = step if step is not None else self.latest_step(tag)
         if step is None:
             return None, None

@@ -150,8 +150,16 @@ def test_norm_act_serve_per_sample_population_variance(role):
     else:  # quantized: XLA turns "/ n" into "* (1/n)", so compare levels
         lv_got, lv_ref = np.rint(got * 15), np.rint(ref * 15)
         assert (lv_got != lv_ref).mean() <= MAX_FLIP_FRAC
-    with pytest.raises(ValueError):
-        cnn._norm_act(_t(x), _t(g), _t(beta), quant.W1A4, role, "train")
+    # train mode takes batch statistics over (B, H, W), as the reference's
+    ref = np.asarray(jax.jit(lambda v: jcnn._norm_act(
+        v, g, beta, jquant.W1A4, role, "train"))(x))
+    got = cnn._norm_act(_t(x), _t(g), _t(beta), quant.W1A4, role,
+                        "train").numpy()
+    if role == "last":
+        np.testing.assert_allclose(got, ref, **TOL)
+    else:
+        lv_got, lv_ref = np.rint(got * 15), np.rint(ref * 15)
+        assert (lv_got != lv_ref).mean() <= MAX_FLIP_FRAC
 
 
 def test_avg_pool2_matches_reduce_window():

@@ -818,3 +818,21 @@ def test_implicit_conv_takes_a_strided_input(cuda_device):
               s_w=0.05, z_w=0.5)
     got = quant_conv2d_pre(x, w_lv, engine="implicit", **kw)
     assert torch.equal(got, quant_conv2d_pre(x, w_lv, engine="fused", **kw))
+
+
+@pytest.mark.gpu
+def test_checkpoint_restore_lands_on_the_card(cuda_device, tmp_path):
+    """With no ``device`` a restore puts each leaf on its template leaf's
+    device: a trainer on the card resumes on the card."""
+    from repro_torch.train.checkpoint import Checkpointer
+
+    ck = Checkpointer(str(tmp_path), async_save=False)
+    state = dict(w=torch.arange(6.0, device=cuda_device).reshape(2, 3),
+                 step=torch.tensor(3, dtype=torch.int32, device=cuda_device))
+    ck.save(1, state)
+    _, back = ck.restore(state)
+    assert back["w"].device.type == "cuda"
+    assert torch.equal(back["w"], state["w"])
+    assert back["step"].shape == () and int(back["step"]) == 3
+    _, host = ck.restore(state, device="cpu")
+    assert host["w"].device.type == "cpu"
