@@ -192,6 +192,32 @@ Phases, each of which makes the script exit nonzero when it fails:
    3-20 (synchronized), one step's host wall against its device time
    (``torch.profiler``), ``torch.cuda.max_memory_allocated`` and the
    phase's seconds;
+5g. distributed, one ``DIST`` line: ``launch.mesh.make_serve_mesh()`` is
+   None on one card; the data-parallel ``ServeEngine`` over two replicas
+   on ``cuda:0`` (a test layout for one card): svhn(64) W1A8, 32 requests
+   at ``max_batch=8``, each dispatch two 4-row replica forwards equal to
+   the one-device engine at ``max_batch=4`` bit for bit with exactly twice
+   a 4-row dispatch's ``conv_implicit``/``fused_qgemm`` launches (the
+   plan's 4-row engines), within the alone-vs-batched tolerance of one
+   device's 8-row dispatches, and the two-replica and one-device 4 s
+   windows' requests/s side by side; SmolLM-360M W1A8, two 2048-token
+   prompts x 16 new tokens, each replica's tokens held to its prompt
+   served alone and ``attn_flash`` launched 32 times a replica; in a
+   child process a card (``init_process_group("nccl")``, world =
+   ``device_count()``), SmolLM-360M W1A8 at full width and depth (bf16,
+   remat) for 3 steps through the meshless ``Trainer`` and through
+   ``Trainer(mesh=)`` on a ``(world, 1)`` mesh: step 1's gathered
+   gradients leaf by leaf, each step's params against the meshless
+   optimizer fed the run's own gradients (DIST_STEP_TOL) and the losses;
+   at world 1 gradients within 1e-4 x max|g|, losses within 1e-6, params
+   within DIST_STEP_TOL of the meshless run's (bit-identity reported);
+   split, gradients within DIST_SPLIT_GRAD_TOL, and a planted fault (half
+   the batch's gradient) must fail that bound; ms per step, one step's
+   profile, launches, peak memory and DTensor's overhead a step;
+   ``compressed_allreduce`` over the NCCL group on the
+   trainer's gradients, equal to the local path at world 1; with four or
+   more cards the trainer at ``(world / 2, 2)``, the pipeline at S = 4
+   and the svhn engine over every card (``"not run: 1 card"`` on one);
 6. one JSON line listing the kernels (with the families' and the
    modalities' launches, and the train phase's handoff launches), then
    the contract's last line.
@@ -501,6 +527,44 @@ TRAIN_FLIP_MARGIN = 1e-4
 # batch noise), over 512 the loss falls within the 20 steps
 TRAIN_LM = dict(steps=20, batch=8, seq=64, lr=3e-3, warmup=5, ckpt_every=10,
                 compressed_steps=2, timed_from=3, data_vocab=512)
+
+# the distributed phase: svhn requests over the two-replica engine, the
+# NCCL trainer's run (TRAIN_LM's batches, 3 steps), the multi-card
+# pipeline's shape and tolerance (x the larger of max|y|, max|dW|).  A mesh
+# trainer is held to the meshless trainer on the same params and batches
+# three ways: step 1's gathered gradient leaf by leaf (x the leaf's
+# max|g|); each step's params within DIST_STEP_TOL of the meshless
+# optimizer fed the run's own gathered gradients from the same params (as
+# tests/test_torch_dist_train.py holds them); the losses.  At world 1
+# (nothing split) the gradients within TRAIN_GRAD_TOL, the losses within
+# TRAIN_LOSS_TOL and the params within DIST_STEP_TOL of the meshless run's
+DIST_SVHN_REQUESTS = 32
+DIST_TRAIN = dict(steps=3, batch=8, seq=64, lr=3e-3, warmup=5,
+                  data_vocab=512)
+DIST_STEP_TOL = 1e-5
+# split over several ranks, each rank's bf16 weight gradient covers its own
+# rows and is rounded once (2^-9 of that partial sum), and the ranks'
+# partials are summed in bf16 in another order than one device sums them;
+# at model > 1 the row-parallel products' partials are rounded and summed
+# the same way in the forward, and where such a rounding crosses an 8-bit
+# activation level (W1A8) the input moves by a whole level, 1/127 of the
+# tensor's max.  So each leaf is held within 2^-3 of its max|g|: the CPU
+# rehearsal of this phase (smoke SmolLM, bf16) read 3.8e-3 at (4, 1) and
+# 3.5e-2 at (2, 2), four H100s 1.6e-2 and 8.1e-2.  A gradient that missed
+# the data all-reduce (one rank's rows alone) is O(1) off: DIST_FAULT_ROWS
+# (the first half of the batch) is planted on every run, and over half its
+# leaves must exceed the bound (on the H100 every leaf, 0.87 to 1.17 x
+# max|g|).  The losses
+# within one bf16 rounding (2^-8, relative).  After a step the params are
+# not held to the meshless run's: AdamW's first steps move each element by
+# about lr x sign(g), so a sign flip in a near-zero element parts the runs
+# by up to twice the lr; the optimizer bound above holds each step instead
+DIST_SPLIT_GRAD_TOL = 2.0 ** -3
+DIST_SPLIT_LOSS_TOL = 2.0 ** -8
+DIST_FAULT_ROWS = DIST_TRAIN["batch"] // 2
+DIST_PIPE = dict(M=8, mb=4, d=960)
+DIST_PIPE_TOL = 2e-5
+DIST_CHILD_TIMEOUT_S = 600
 
 FLEET_CPU_RUN = r"""
 import json, sys
@@ -3469,6 +3533,589 @@ def train_phase(card: str) -> dict:
     return line
 
 
+DIST_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+line = chip_smoke.dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+if int(sys.argv[2]) == 0:
+    with open(sys.argv[5], "w") as f:
+        json.dump(line, f)
+    sys.exit(1 if line["failures"] else 0)
+"""
+
+
+def _named(tree, path=""):
+    """``(path, leaf)`` of a param tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _nbytes(trees) -> int:
+    return sum(t.numel() * t.element_size() for tree in trees
+               for _, t in _named(tree) if torch.is_tensor(t))
+
+
+def _grad_gap(got, want, tol: float) -> dict:
+    """Leaf by leaf, max|got - want| over the leaf's max|want|: the
+    largest such ratio and its leaf, the median and the least over the
+    leaves, and how many leaves exceed ``tol``."""
+    rel = {}
+    for (k, a), (k2, b) in zip(_named(got), _named(want), strict=True):
+        assert k == k2, (k, k2)
+        scale = float(b.float().abs().max()) if b.numel() else 0.0
+        d = float((a.float() - b.float()).abs().max()) if b.numel() else 0.0
+        rel[k] = d / max(scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    return dict(max_rel=rel[worst], worst_leaf=worst,
+                median_rel=float(np.median(list(rel.values()))),
+                min_rel=min(rel.values()),
+                leaves=len(rel), leaves_over_tol=sum(v > tol
+                                                     for v in rel.values()),
+                tol=tol)
+
+
+def _max_abs_diff(a, b) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for (_, x), (_, y) in zip(_named(a), _named(b), strict=True))
+
+
+def _hold_trainer(tag: str, run: dict, ref: dict, split: bool,
+                  fails: list) -> dict:
+    """A mesh trainer's run against the meshless run's from the same params
+    and batches (``ref``: its losses, final params and step-1 gradients):
+    step 1's gradients leaf by leaf, each step's params against the
+    meshless optimizer fed the run's own gradients (``run["opt_gap"]``),
+    the losses, and at world 1 (``split`` false) the params.  Appends
+    what failed to ``fails``; returns the readings."""
+    grad_tol = DIST_SPLIT_GRAD_TOL if split else TRAIN_GRAD_TOL
+    loss_tol = DIST_SPLIT_LOSS_TOL if split else TRAIN_LOSS_TOL
+    grads = _grad_gap(run["grads0"], ref["grads0"], grad_tol)
+    if grads["max_rel"] > grad_tol:
+        fails.append(f"{tag}: step 1's gradient {grads['worst_leaf']} "
+                     f"{grads['max_rel']} x max|g| from the meshless run's "
+                     f"(> {grad_tol})")
+    opt_gap = max(run["opt_gap"])
+    if opt_gap > DIST_STEP_TOL:
+        fails.append(f"{tag}: params {run['opt_gap']} from the meshless "
+                     f"optimizer on the run's own gradients "
+                     f"(> {DIST_STEP_TOL})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                  ref["losses"]))
+    if rel > loss_tol:
+        fails.append(f"{tag}: losses {run['losses']} vs meshless "
+                     f"{ref['losses']} (relative {rel} > {loss_tol})")
+    d = _max_abs_diff(run["params"], ref["params"])
+    if not split and d > DIST_STEP_TOL:
+        fails.append(f"{tag}: params {d} from the meshless run's "
+                     f"(> {DIST_STEP_TOL})")
+    return dict(losses=run["losses"], meshless_losses=ref["losses"],
+                loss_rel_diff=rel, loss_tol=loss_tol, step1_grads=grads,
+                opt_gap_per_step=run["opt_gap"], opt_tol=DIST_STEP_TOL,
+                param_max_abs_diff=d,
+                param_tol=None if split else DIST_STEP_TOL,
+                bit_identical=bool(rel == 0.0 and d == 0.0
+                                   and grads["max_rel"] == 0.0))
+
+
+def dist_rank(rank: int, world: int, rdv: str) -> dict:
+    """One rank of the DIST phase's trainer run (a child process a card,
+    NCCL over ``world`` ranks): SmolLM-360M W1A8 at full width and depth
+    (bf16, remat) for DIST_TRAIN steps through the meshless ``Trainer``
+    (rank 0) and through ``Trainer(mesh=)`` on a ``(world, 1)`` mesh from
+    the same params and batches, held to each other (``_hold_trainer``;
+    the planted fault, DIST_FAULT_ROWS rows' gradient, must fail the split
+    bound); the compressed all-reduce over the NCCL group on the mesh
+    trainer's gradients, held to the local path at world 1; with four or
+    more cards the trainer at ``(world / 2, 2)`` and the pipeline at S = 4
+    too.  Returns rank 0's report, with what failed under ``failures``."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import SINGLE, get_config, make_plan
+    from repro_torch.core.quant import W1A8
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _lib
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.compression import compressed_allreduce
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, device_id=dev)
+    L = DIST_TRAIN
+    cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+    ocfg = OptConfig(lr=L["lr"], warmup_steps=L["warmup"],
+                     total_steps=L["steps"])
+    fails: list = []
+    held: dict = {}     # the checks' trees on this card, out of the peaks
+
+    def batch(s, rows=None):
+        b = lm_batch(s, 0, batch=L["batch"], seq=L["seq"],
+                     vocab=L["data_vocab"], seed=0)
+        return {k: v[:rows] for k, v in b.items()}
+
+    def run(tr) -> dict:
+        """DIST_TRAIN steps of ``tr``, each timed (gradient and optimizer
+        step, synchronized; its peak memory without the checks' trees).
+        On a mesh every rank gathers each step's gradients and params, and
+        rank 0 keeps step 1's gradients and holds the params against the
+        meshless optimizer (``apply_updates`` on full tensors) fed the
+        run's own gradients from the same params."""
+        on = tr.mesh is not None
+        p = shd.full_tree(tr.params) if on else None
+        if on and rank == 0:
+            held["ref"] = opt_mod.tree_map(lambda x: x.detach(), p)
+            held["ref_st"] = opt_mod.init_opt_state(held["ref"], ocfg)
+        del p
+        losses, ms, peaks, opt_gap = [], [], [], []
+        _lib.reset_launches()
+        for s in range(L["steps"]):
+            b = tr.place_batch(batch(s))
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            loss, _, g = tr.value_and_grad(b)
+            tr.apply_grads(g)
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+            peaks.append(torch.cuda.max_memory_allocated(dev)
+                         - _nbytes(held.values()))
+            losses.append(float(shd.full_tree(loss)))
+            if on:
+                g, p = shd.full_tree(g), shd.full_tree(tr.params)
+                if rank == 0:
+                    held["ref"], held["ref_st"], _ = opt_mod.apply_updates(
+                        held["ref"], g, held["ref_st"], ocfg)
+                    opt_gap.append(_max_abs_diff(p, held["ref"]))
+                    if s == 0:
+                        held["grads0"] = g
+                del p
+            del loss, g
+        held.pop("ref", None)
+        held.pop("ref_st", None)
+        params = shd.full_tree(tr.params)
+        return dict(losses=losses, params=params if rank == 0 else None,
+                    grads0=held.pop("grads0", None), opt_gap=opt_gap,
+                    ms_per_step=ms, ms_per_step_median=float(np.median(ms)),
+                    launches={k: v for k, v in _lib.LAUNCHES.items() if v},
+                    max_memory_allocated_gb=max(peaks) / 1e9)
+
+    def meshless(tr, fault: bool) -> dict:
+        """Rank 0's meshless run: step 1's gradient at the start params
+        (and, with ``fault``, the planted fault's: DIST_FAULT_ROWS rows,
+        held to the split bound, which over half its leaves must fail),
+        then ``run``."""
+        _, _, g = tr.value_and_grad(tr.place_batch(batch(0)))
+        out = {}
+        if fault:
+            _, _, gh = tr.value_and_grad(tr.place_batch(
+                batch(0, DIST_FAULT_ROWS)))
+            out["planted_fault"] = dict(
+                rows=DIST_FAULT_ROWS, of=L["batch"],
+                **_grad_gap(gh, g, DIST_SPLIT_GRAD_TOL))
+            del gh
+            if out["planted_fault"]["median_rel"] <= DIST_SPLIT_GRAD_TOL:
+                fails.append(f"dist: the planted fault ({DIST_FAULT_ROWS} "
+                             f"of {L['batch']} rows) passed the split "
+                             f"gradient bound on half its leaves: "
+                             f"{out['planted_fault']}")
+        held["meshless_grads0"] = g
+        out.update(run(tr))
+        out["grads0"] = g
+        held["meshless_params"] = out["params"]
+        return out
+
+    def profile_step(tr) -> dict:
+        b = tr.place_batch(batch(L["steps"]))
+        if rank == 0:
+            return profile_forward(lambda: tr.train_step(b), 1)
+        for _ in range(3):          # profile_forward's steps, in step
+            tr.train_step(b)
+        return {}
+
+    def report(r) -> dict:
+        return {k: v for k, v in r.items()
+                if k not in ("params", "grads0", "opt_gap")}
+
+    line: dict = dict(world=world, arch="smollm-360m", quant="w1a8",
+                      compute_dtype=str(cfg.compute_dtype), remat=cfg.remat,
+                      n_layers=cfg.n_layers, d_model=cfg.d_model,
+                      batch=L["batch"], seq=L["seq"], steps=L["steps"],
+                      failures=fails)
+    ref = None
+    if rank == 0:
+        tr = Trainer(cfg, SINGLE, ocfg, TrainConfig(steps=L["steps"]),
+                     device=dev)
+        ref = meshless(tr, fault=True)
+        line["planted_fault"] = ref.pop("planted_fault")
+        ref["one_step_profile"] = profile_step(tr)
+        del tr
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    tr = Trainer(cfg, make_plan(shd.mesh_sizes(mesh)), ocfg,
+                 TrainConfig(steps=L["steps"]), mesh=mesh)
+    on_mesh = run(tr)
+    check(not on_mesh["launches"],
+          f"dist: training launched port kernels {on_mesh['launches']}")
+    # the compressed all-reduce over the NCCL group, on this trainer's
+    # gradients
+    _, _, g = tr.value_and_grad(tr.place_batch(batch(L["steps"])))
+    g = shd.full_tree(g)
+    ef = {k: torch.zeros_like(v) for k, v in enumerate(tree_leaves(g))}
+    g = dict(enumerate(tree_leaves(g)))
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    mean, ef_g = compressed_allreduce(g, ef, group=dist.group.WORLD)
+    torch.cuda.synchronize(dev)
+    comp_ms = 1e3 * (time.perf_counter() - t)
+    loc, ef_l = compressed_allreduce(g, ef)
+    same = all(torch.equal(mean[k], loc[k]) and torch.equal(ef_g[k], ef_l[k])
+               for k in g)
+    if world == 1:
+        check(same, "dist: compressed_allreduce over the group differs "
+              "from the local path at world 1")
+    line["compressed_allreduce"] = dict(
+        leaves=len(g), elements=sum(v.numel() for v in g.values()),
+        ms=comp_ms, equal_to_local_path=same)
+    del g, ef, mean, ef_g, loc, ef_l
+    on_mesh["one_step_profile"] = profile_step(tr)
+    del tr
+    torch.cuda.empty_cache()
+    if rank == 0:
+        line["mesh"] = [world, 1]
+        line["vs_meshless"] = _hold_trainer(
+            f"dist ({world}, 1)", on_mesh, ref, world > 1, fails)
+        line["meshless"], line["on_mesh"] = report(ref), report(on_mesh)
+        line["dtensor_overhead_ms_per_step"] = (
+            on_mesh["ms_per_step_median"] - ref["ms_per_step_median"])
+    del on_mesh, ref
+    held.clear()
+    torch.cuda.empty_cache()
+    if world >= 4:
+        line["multi_card"] = _dist_multi_card(rank, world, cfg, ocfg,
+                                              meshless, run, held, fails)
+    else:
+        line["multi_card"] = f"not run: {world} card" + (
+            "s" if world != 1 else "")
+    dist.destroy_process_group()
+    return line
+
+
+def _dist_multi_card(rank, world, cfg, ocfg, meshless, run, held: dict,
+                     fails: list) -> dict:
+    """Four or more cards: the trainer at ``(world / 2, 2)`` against a
+    meshless run of the same plan (its padded query heads: SmolLM's 15
+    pad to 16, so both start from one ``init_lm`` draw at that plan and
+    the meshless trainer computes ``lm_loss`` under it), held as the
+    ``(world, 1)`` run is, and the GPipe pipeline at S = 4 against the
+    sequential stages on one card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import SINGLE, make_plan
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    out = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", (world // 2, 2),
+                            mesh_dim_names=("data", "model"))
+    plan = make_plan(shd.mesh_sizes(mesh))
+    p0 = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, plan,
+                   device=dev)
+    tcfg = TrainConfig(steps=DIST_TRAIN["steps"])
+    ref = None
+    if rank == 0:
+        ref = meshless(Trainer(cfg, SINGLE, ocfg, tcfg, device=dev,
+                               params=p0, loss_fn=lambda p, b: T.lm_loss(
+                                   p, b, cfg, plan)), fault=False)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    tp = run(Trainer(cfg, plan, ocfg, tcfg, mesh=mesh, params=p0))
+    if rank == 0:
+        out["trainer"] = dict(
+            mesh=[world // 2, 2], padded_heads=plan.padded_heads(cfg.n_heads),
+            **_hold_trainer(f"dist ({world // 2}, 2)", tp, ref, True, fails),
+            ms_per_step_median=tp["ms_per_step_median"],
+            max_memory_allocated_gb=tp["max_memory_allocated_gb"],
+            meshless_ms_per_step_median=ref["ms_per_step_median"])
+    del tp, ref, p0
+    held.clear()
+    torch.cuda.empty_cache()
+    S, P = 4, DIST_PIPE
+    pmesh = init_device_mesh("cuda", (S, world // S),
+                             mesh_dim_names=("pipe", "data"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ws = torch.randn((S, P["d"], P["d"]), generator=gen, device="cuda") \
+        * P["d"] ** -0.5
+    x = torch.randn((P["M"], P["mb"] * (world // S), P["d"]), generator=gen,
+                    device="cuda")
+    ws, x = ws.to(dev), x.to(dev)
+    wd = distribute_tensor(ws, pmesh, [Shard(0), Replicate()]) \
+        .requires_grad_()
+    xd = distribute_tensor(x, pmesh, [Replicate(), Shard(1)])
+    y = pipe.pipeline_apply(lambda w, h: torch.tanh(h @ w), wd, xd,
+                            mesh=pmesh, n_microbatches=P["M"])
+    yf = y.full_tensor()
+    gw = torch.autograd.grad(yf.sum(), [wd])[0].full_tensor()
+    if rank == 0:
+        w0 = ws.detach().requires_grad_()
+        h = x
+        for s in range(S):
+            h = torch.tanh(h @ w0[s])
+        gref = torch.autograd.grad(h.sum(), [w0])[0]
+        dy = float((yf - h).abs().max())
+        dg = float((gw - gref).abs().max())
+        tol = DIST_PIPE_TOL * max(float(h.abs().max()),
+                                  float(gref.abs().max()))
+        check(dy <= tol and dg <= tol,
+              f"dist pipeline: |dy| {dy}, |dW| {dg} > {tol}")
+        out["pipeline"] = dict(stages=S, mesh=[S, world // S], **P,
+                               y_max_abs_diff=dy, dw_max_abs_diff=dg,
+                               tol=tol)
+    return out
+
+
+def dist_phase(card: str) -> dict:
+    """The distributed phase, one ``DIST`` line: (1) ``make_serve_mesh()``
+    is None on one card; the data-parallel ``ServeEngine`` over two
+    replicas on ``cuda:0`` (a test layout for one card) for svhn(64) W1A8
+    (32 requests at ``max_batch=8``: each dispatch two 4-row replica
+    forwards, bit-identical to the one-device engine at ``max_batch=4``
+    with exactly twice a 4-row dispatch's launches, against one device's
+    8-row dispatches within the alone-vs-batched tolerance; the two-replica
+    and one-replica ``serve_window``s' requests/s side by side) and for
+    SmolLM-360M W1A8 (two 2048-token prompts x 16 new tokens: each
+    replica's tokens held to its prompt served alone, 32 ``attn_flash``
+    launches a replica); (2) the trainer over NCCL in a child process a
+    card (``dist_rank``); (3) with four or more cards the CNN engine over
+    ``make_serve_mesh()`` too."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.configs import SINGLE, get_config
+    from repro_torch.core import plan as P
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.engine import CNNRunner, LMRunner, ServeEngine
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import serve_once
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import init_cnn, svhn_cnn_spec
+    from repro_torch.models.layers import prequantize_params
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    n_cards = torch.cuda.device_count()
+    line: dict = dict(card=card, cards=n_cards)
+    serve_mesh = make_serve_mesh()
+    if n_cards == 1:
+        check(serve_mesh is None,
+              f"dist: make_serve_mesh() on one card is {serve_mesh}")
+    line["make_serve_mesh"] = (None if serve_mesh is None
+                               else [str(d) for d in serve_mesh])
+    two = (dev, dev)
+    try:
+        # (1a) svhn(64) W1A8 over two replicas on one card
+        rs = np.random.RandomState(11)
+        images = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+                  for _ in range(DIST_SVHN_REQUESTS)]
+        compiled = api.build(svhn_cnn_spec(), W1A8, params=init_cnn(
+            torch.Generator(device=dev).manual_seed(0), svhn_cnn_spec()),
+            img_hw=40).compile(target="cuda", batch_hints=(1, 8))
+        runner = CNNRunner(compiled.plan)
+        engines4 = [lp.engine for lp in P.layers_for_batch(compiled.plan, 4)]
+        per4 = {k: 0 for k in _lib.LAUNCHES}
+        per4.update(conv_implicit=engines4.count("implicit"),
+                    fused_qgemm=engines4.count("fused"))
+        one8 = ServeEngine(runner, max_batch=8)
+        one4 = ServeEngine(runner, max_batch=4)
+        dp = ServeEngine(runner, max_batch=8, mesh=two)
+        for e in (one8, one4, dp):
+            e.serve(images[:8])                 # warm-up, not counted
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        one4.serve(images[:4])
+        check(_lib.LAUNCHES == per4, f"dist: a 4-row dispatch launched "
+              f"{_lib.LAUNCHES}, the plan's engines say {per4}")
+        # ---- the data-parallel main path, counted
+        d0 = dp.stats["dispatches"]
+        _lib.reset_launches()
+        got = np.stack([r.value for r in dp.serve(images)])
+        launches = dict(_lib.LAUNCHES)
+        # ----
+        n_disp = dp.stats["dispatches"] - d0
+        check(n_disp == DIST_SVHN_REQUESTS // 8,
+              f"dist: {n_disp} dispatches for {DIST_SVHN_REQUESTS} requests")
+        want = {k: 2 * n_disp * v for k, v in per4.items()}
+        check(launches == want, f"dist: two-replica launches {launches} != "
+              f"twice the 4-row dispatch's, {want}")
+        four = np.stack([r.value for r in one4.serve(images)])
+        eight = np.stack([r.value for r in one8.serve(images)])
+        vs_four = _check_logits("dist svhn vs one device at the shard's size",
+                                got, four, exact=True)
+        vs_eight = _check_logits("dist svhn vs one device", got, eight)
+        win_dp, vals = serve_window(dp, images)
+        check(all(np.array_equal(v, got[i % len(images)])
+                  for i, v in enumerate(vals)),
+              "dist: the two-replica window differs from the request set")
+        win_one, _ = serve_window(one8, images)
+        line["svhn"] = dict(
+            seconds=time.perf_counter() - t_phase,
+            quant="w1a8", requests=DIST_SVHN_REQUESTS, max_batch=8,
+            replicas=2, dispatches=n_disp,
+            launches_per_dispatch={k: v // n_disp for k, v in
+                                   launches.items() if v},
+            launches_per_replica_dispatch={k: v for k, v in per4.items()
+                                           if v},
+            vs_one_device_at_shard_size=vs_four,
+            vs_one_device=vs_eight,
+            serving_window_two_replicas=win_dp,
+            serving_window_one_device=win_one,
+            requests_per_s_ratio=(win_dp["requests_per_s"]
+                                  / win_one["requests_per_s"]))
+        del one8, one4, dp, runner, compiled
+        torch.cuda.empty_cache()
+
+        # (1b) SmolLM-360M W1A8 over two replicas on one card
+        t_lm = time.perf_counter()
+        cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+        params = prequantize_params(T.init_lm(
+            torch.Generator(device=dev).manual_seed(2), cfg, SINGLE), cfg)
+        rs = np.random.RandomState(3)
+        prompts = [rs.randint(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+                   for _ in range(2)]
+        lm_runner = LMRunner(params, cfg, new_tokens=LM_NEW)
+        lm_dp = ServeEngine(lm_runner, max_batch=2, mesh=two)
+        alone_eng = ServeEngine(lm_runner, max_batch=1)
+        alone_eng.serve([prompts[0][:64]])       # warm-up, not counted
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        lm_res = lm_dp.serve(prompts)
+        lm_s = time.perf_counter() - t0
+        lm_launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        check(lm_dp.stats["dispatches"] == 1,
+              f"dist: {lm_dp.stats['dispatches']} LM dispatches")
+        check(lm_launches == {"attn_flash": 2 * cfg.n_layers},
+              f"dist: LM launches {lm_launches} != attn_flash "
+              f"{cfg.n_layers} a replica")
+        held = []
+        for p, r in zip(prompts, lm_res):
+            alone = alone_eng.serve([p])[0].value
+            margins = np.zeros((1, LM_NEW))
+            if not np.array_equal(r.value, alone):   # the oracle's margins
+                m = []
+                serve_once(params, cfg, SINGLE,
+                           torch.from_numpy(p[None]).to(dev), LM_NEW,
+                           "serve", margins=m)
+                margins = torch.stack(m, dim=1).cpu().numpy()
+            held.append(_hold_tokens("dist smollm replica vs alone",
+                                     r.value, alone, margins))
+            held[-1]["bit_identical"] = bool(np.array_equal(r.value, alone))
+        line["smollm"] = dict(
+            seconds=time.perf_counter() - t_lm, serve_seconds=lm_s,
+            quant="w1a8", prompts=2, prompt_len=LM_PROMPT, new_tokens=LM_NEW,
+            replicas=2,
+            attn_flash_launches_per_replica=lm_launches.get("attn_flash", 0) // 2,
+            vs_alone=held)
+        del lm_dp, alone_eng, lm_runner, params
+        torch.cuda.empty_cache()
+
+        # (2) the trainer over NCCL, a child process a card
+        t0 = time.perf_counter()
+        line["train"] = _dist_children(n_cards)
+        line["train"]["seconds"] = time.perf_counter() - t0
+        line["train"]["card"] = card
+
+        # (3) four or more cards: the CNN engine over make_serve_mesh()
+        if n_cards >= 4:
+            line["multi_card_serve"] = _dist_serve_mesh(serve_mesh, images)
+        else:
+            line["multi_card_serve"] = f"not run: {n_cards} card"
+    except BaseException:
+        print("DIST-PARTIAL", json.dumps(line, default=str), flush=True)
+        raise
+    line["seconds"] = time.perf_counter() - t_phase
+    print("DIST", json.dumps(line), flush=True)
+    return line
+
+
+def _dist_children(n: int) -> dict:
+    """Run ``dist_rank`` in ``n`` child processes (one a card, NCCL) and
+    return rank 0's report; every child is stopped on the way out."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="dist_", dir=os.path.join(ROOT, "build"))
+    out = os.path.join(d, "rank0.json")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_CHILD, ROOT, str(r), str(n),
+         os.path.join(d, "rendezvous"), out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=DIST_CHILD_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    line = None
+    if os.path.exists(out):
+        with open(out) as f:
+            line = json.load(f)
+        check(not line["failures"], f"dist: {line['failures']} "
+              f"(rank 0's report: {json.dumps(line)})")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"dist: rank {r} exited {p.returncode}")
+    return line
+
+
+def _dist_serve_mesh(mesh, images) -> dict:
+    """The svhn(64) W1A8 engine over every card: each replica's rows equal
+    one card's engine at the shard's size bit for bit."""
+    from repro_torch import api
+    from repro_torch.core.quant import W1A8
+    from repro_torch.launch.engine import CNNRunner, ServeEngine
+    from repro_torch.models.cnn import init_cnn, svhn_cnn_spec
+
+    dev = torch.device("cuda", 0)
+    compiled = api.build(svhn_cnn_spec(), W1A8, params=init_cnn(
+        torch.Generator(device=dev).manual_seed(0), svhn_cnn_spec()),
+        img_hw=40).compile(target="cuda", batch_hints=(1, 8))
+    runner = CNNRunner(compiled.plan)
+    n = len(mesh)
+    dp = ServeEngine(runner, max_batch=8, mesh=mesh)
+    shard = ServeEngine(runner, max_batch=max(8 // n, 1))
+    got = np.stack([r.value for r in dp.serve(images)])
+    ref = np.stack([r.value for r in shard.serve(images)])
+    return dict(devices=n, vs_one_card_at_shard_size=_check_logits(
+        "dist svhn over every card", got, ref, exact=True),
+        serving_window=serve_window(dp, images)[0])
+
+
 def bucket_step_profile(params, cfg, layers, batch: int, prompt_len: int,
                         new: int) -> dict:
     """One bucket decode step (``batch`` rows at position ``prompt_len``,
@@ -3723,6 +4370,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train = train_phase(card)
     print(f"TRAIN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dist_phase(card)
+    print(f"DIST PHASE {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernels_line(summary, launches, dict(
         archs=fam["archs"] + mod["archs"]), train["handoff"]["launches"])))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")

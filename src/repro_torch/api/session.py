@@ -196,11 +196,13 @@ class CompiledModel:
         return P.plan_forward(self.plan, x, reference=reference)
 
     def serve(self, *, max_batch: int = 8, flush_deadline_s: float = 0.005,
-              max_pending: int = 4096, new_tokens: int = 16,
+              mesh=None, max_pending: int = 4096, new_tokens: int = 16,
               qmode: str = "serve", resilience=None,
               fallback: "CompiledModel | None" = None) -> Deployment:
         """Stand up the request-level serving engine on this plan (an LM
         plan generates ``new_tokens`` per request through ``LMRunner``).
+        ``mesh`` (``launch.mesh.make_serve_mesh()``: a sequence of
+        devices, or None) makes it data-parallel over those devices.
 
         ``resilience`` (a :class:`repro_torch.resilience.ResilienceConfig`)
         swaps in the fault-surviving engine; with ``fallback`` (a
@@ -210,7 +212,7 @@ class CompiledModel:
         from repro_torch.launch.engine import ServeEngine
 
         kw = dict(max_batch=max_batch, flush_deadline_s=flush_deadline_s,
-                  max_pending=max_pending)
+                  max_pending=max_pending, mesh=mesh)
         if resilience is not None:
             from repro_torch.resilience import build_resilient_engine
 

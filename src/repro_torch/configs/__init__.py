@@ -20,4 +20,4 @@ def get_config(arch_id: str):
     return mod.ARCH
 
 
-from .base import SINGLE, ArchConfig, ShardPlan  # noqa: E402,F401
+from .base import SINGLE, ArchConfig, ShardPlan, make_plan  # noqa: E402,F401

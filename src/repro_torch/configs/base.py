@@ -4,11 +4,12 @@ The dense, MoE, recurrent (RWKV-6, RG-LRU), encoder and VLM families:
 the fields their layers read (the encoder's frame input and the VLM's
 patch embeddings among them), the derived sizes (``hd``,
 ``padded_vocab``, ``blocks_pattern``), ``smoke()`` for the CPU tests
-(reducing every field as the reference's does), and the single-device
-sharding plan with its head padding, the reference's shape cells
+(reducing every field as the reference's does), the reference's shape cells
 (``ShapeCell``, ``SHAPES``: the abstract batches of ``launch.steps``),
-and the training toggle the port reads (``remat``: recompute each
-block's activations in the backward).  The reference's analysis and
+the training toggle the port reads (``remat``: recompute each
+block's activations in the backward), and the sharding plan of a device
+mesh (``ShardPlan``, ``make_plan``: logical axes to mesh axes, read by
+``distributed.sharding``).  The reference's analysis and
 hill-climb toggles (``ce_where_mask`` among them) and ``skip_shapes`` are
 left out: nothing in the port reads them.
 """
@@ -133,13 +134,65 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """Sharding plan; the port runs on one device (``tp == 1``)."""
+    """Logical-axis -> mesh-axis mapping plus padding-relevant sizes.
+
+    tp   = size of the "model" axis (TP/EP degree)
+    fsdp = size of the "data" axis (FSDP/ZeRO param sharding degree)
+    dp   = total batch-sharding degree (pod*data)
+    """
 
     tp: int = 1
+    fsdp: int = 1
+    dp: int = 1
+    batch_axes: Tuple[str, ...] = ()        # mesh axes for the batch dim
+    rules: Tuple[Tuple[str, Optional[str]], ...] = ()
+
+    def axis_for(self, logical: str):
+        for k, v in self.rules:
+            if k == logical:
+                return v
+        return None
 
     def padded_heads(self, n_heads: int) -> int:
         """Q heads padded to a TP multiple (zero-masked; math-exact)."""
         return -(-n_heads // self.tp) * self.tp
 
+    def shard_kv(self, n_kv: int) -> bool:
+        return self.tp > 1 and n_kv % self.tp == 0
 
-SINGLE = ShardPlan(tp=1)
+    def shard_experts(self, n_experts: int) -> bool:
+        return self.tp > 1 and n_experts > 0 and n_experts % self.tp == 0
+
+
+SINGLE = ShardPlan(
+    tp=1, fsdp=1, dp=1, batch_axes=(),
+    rules=(("vocab", None), ("heads", None), ("kv_heads", None), ("mlp", None),
+           ("expert", None), ("embed", None), ("layers", None)),
+)
+
+
+def make_plan(mesh_shape: dict, *, inference: bool = False) -> ShardPlan:
+    """The sharding plan of a mesh ``{axis: size}`` dict.
+
+    ``inference=True`` drops the FSDP rule: with no optimizer state there
+    is no per-device memory pressure, and FSDP's per-layer parameter
+    all-gathers would dominate the serve path's collectives."""
+    tp = mesh_shape.get("model", 1)
+    fsdp = mesh_shape.get("data", 1)
+    pod = mesh_shape.get("pod", 1)
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh_shape)
+    return ShardPlan(
+        tp=tp,
+        fsdp=fsdp,
+        dp=pod * fsdp,
+        batch_axes=batch_axes,
+        rules=(
+            ("vocab", "model"),
+            ("heads", "model"),
+            ("kv_heads", "model"),      # applied only if divisible (shard_kv)
+            ("mlp", "model"),
+            ("expert", "model"),        # applied only if divisible (shard_experts)
+            ("embed", None if inference else "data"),  # FSDP/ZeRO param axis
+            ("layers", None),
+        ),
+    )

@@ -63,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
+
 namespace {
 
 constexpr int BQ = 64;          // query rows per block (4 row groups of 16)
@@ -583,12 +585,10 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return static_cast<int>(e);
   auto kern = attn_flash_kernel<HD, T>;
   constexpr int smem = Tile<HD, T>::BYTES;
-  static bool smem_set = false;
-  if (smem > 48 * 1024 && !smem_set) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  static int smem_set[smem_optin::MAX_DEVICES] = {};
+  if (smem > 48 * 1024) {
+    e = smem_optin::ensure(kern, smem, smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
   }
   kern<<<dim3(B * H, (Sq + BQ - 1) / BQ), Tile<HD, T>::THREADS, smem, st>>>(
       tq, kc, static_cast<const T*>(v), static_cast<T*>(out), part, NPART, Sq,

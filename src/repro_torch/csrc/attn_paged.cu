@@ -65,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -520,12 +522,10 @@ int launch_typed(const void* q, const void* pk, const void* pv,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   auto kern = attn_paged_kernel<HD, T>;
-  static int smem_set = 48 * 1024;
-  if (pl.smem > smem_set) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             pl.smem);
+  static int smem_set[smem_optin::MAX_DEVICES] = {};
+  if (pl.smem > 48 * 1024) {
+    e = smem_optin::ensure(kern, pl.smem, smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = pl.smem;
   }
   kern<<<dim3(nsplit, Hkv * pl.ngroups, B), THREADS, pl.smem, st>>>(
       tq, tk, static_cast<const T*>(pv), tpos, ttab,

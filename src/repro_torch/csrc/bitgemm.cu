@@ -72,6 +72,7 @@
 #include <algorithm>
 
 #include "u8_mma.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -378,14 +379,10 @@ template <int BM, int AB, int WB>
 cudaError_t launch(const Plan& p, const uint32_t* a, const uint32_t* w,
                    int* out, int M, int N, int Kw, int a_bits, int w_bits,
                    int vec, cudaStream_t st) {
-  static bool attr_set = false;  // once per instance: above 48 KB
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bitgemm_packed_kernel<BM, AB, WB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static int attr_set[smem_optin::MAX_DEVICES] = {};  // above 48 KB
+  cudaError_t e = smem_optin::ensure(bitgemm_packed_kernel<BM, AB, WB>,
+                                     SMEM_MAX, attr_set);
+  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, p.nsplit);
   cfg.blockDim = dim3(THREADS);

@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include "u8_mma.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -302,13 +303,9 @@ cudaError_t launch(const uint8_t* x, const uint8_t* w, float* out, int B,
                    int w_async, float s, float t, cudaStream_t st) {
   constexpr int TM = WARPS_M * FM * 16;
   auto* kern = conv_implicit_kernel<WARPS_M, FM, WARPS_N>;
-  static bool opted_in = false;  // once a process: the whole 227 KB
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
+  static int opted_in[smem_optin::MAX_DEVICES] = {};  // the whole 227 KB
+  const cudaError_t e = smem_optin::ensure(kern, SMEM_LIMIT, opted_in);
+  if (e != cudaSuccess) return e;
   const dim3 grid((OH * OW + TM - 1) / TM, (Cout + TN - 1) / TN, B);
   kern<<<grid, WARPS_M * WARPS_N * 32, smem_bytes, st>>>(
       x, w, out, H, W, Cin, Cout, kh, kw, stride, OH, OW, pad_top, pad_left,

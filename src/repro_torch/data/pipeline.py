@@ -3,11 +3,15 @@
 
 Every batch is a pure function of (step, micro, host), so a restart
 replays identically and any host can compute another host's shard.  The
-host index and count default to the initialized ``torch.distributed``
-process group's rank and world size, else 0 and 1.
+host index and count default to the reference's ``jax.process_index()``
+and ``jax.process_count()``: hosts (nodes), not ranks.  Under ``torchrun``
+that is ``GROUP_RANK`` and the world over ``LOCAL_WORLD_SIZE``; ranks
+spawned on one machine are one host, which addresses the whole global
+batch (a trainer over a mesh splits it over its ranks).
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Any, Callable, Optional
@@ -15,11 +19,13 @@ from typing import Any, Callable, Optional
 import torch
 
 
-def _rank_and_world() -> tuple[int, int]:
+def _host_and_count() -> tuple[int, int]:
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    world = dist.get_world_size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return int(os.environ.get("GROUP_RANK", 0)), world // local
 
 
 class Pipeline:
@@ -29,11 +35,11 @@ class Pipeline:
                  n_hosts: Optional[int] = None):
         """batch_fn(step, micro) -> GLOBAL batch dict of numpy arrays; the
         pipeline slices this host's shard and prefetches ahead."""
-        rank, world = _rank_and_world()
+        host, count = _host_and_count()
         self.batch_fn = batch_fn
         self.accum = accum_steps
-        self.host = rank if host_index is None else host_index
-        self.n_hosts = world if n_hosts is None else n_hosts
+        self.host = host if host_index is None else host_index
+        self.n_hosts = count if n_hosts is None else n_hosts
         self.prefetch = prefetch
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._thread: Optional[threading.Thread] = None

@@ -1,6 +1,7 @@
-"""Request-level serving engines (port of ``repro/launch/engine.py``,
-single device): the bucket engine for CNN plans and LMs, and the
-continuous-batching LM engine over a paged KV cache.
+"""Request-level serving engines (port of ``repro/launch/engine.py``):
+the bucket engine for CNN plans and LMs (on one device, or data-parallel
+over a serving mesh), and the continuous-batching LM engine over a paged
+KV cache.
 
 Requests are grouped by shape (image shape; prompt length and horizon)
 into padding buckets; a bucket
@@ -19,6 +20,17 @@ and batched (``tests/test_torch_api.py``).  On the card the float ops
 around the kernels are library reductions and convolutions whose
 summation order may change with the batch size, so ``chip_smoke.py``
 holds alone-vs-batched to equal argmax and a stated tolerance.
+
+Data parallel (``ServeEngine(mesh=)``, ``launch.mesh.make_serve_mesh``):
+the engine holds one replica of the runner's plan or params on each
+device of the mesh, pads every bucket to a multiple of the device count,
+splits it evenly, stages each shard on its device and runs each
+replica's forward on its own shard (``distributed.sharding.
+data_parallel``), gathering the outputs in order: the reference's
+``shard_map`` over the ``data`` axis, the datacenter counterpart of the
+paper's independent sub-array windows.  Each shard's per-tensor
+reductions (an LM's activation scales) see that shard alone, as under
+``shard_map``.
 
 LM serving: :class:`LMRunner` turns one bucket of equal-length prompts
 into prefill + greedy decode (``launch/serve.py``); with the default
@@ -174,6 +186,15 @@ def lm_fingerprint(params, cfg, **geometry) -> str:
     return h.hexdigest()[:12]
 
 
+def _tree_to(tree, device):
+    """Every tensor leaf of a params tree copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
 class CNNRunner:
     """Batched CNN serve forward over a compiled plan (image (H, W, C) ->
     logits row)."""
@@ -193,6 +214,14 @@ class CNNRunner:
 
     def collate(self, payloads, pad_to: int) -> np.ndarray:
         return _collate(payloads, pad_to, np.float32)
+
+    def replica(self, device) -> "CNNRunner":
+        """This runner with the plan's params on ``device`` (itself when
+        they are there already)."""
+        if torch.device(device) == self.device:
+            return self
+        return CNNRunner(dataclasses.replace(
+            self.plan, params=_tree_to(self.plan.params, device)))
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         from repro_torch.core.plan import plan_forward
@@ -242,6 +271,19 @@ class LMRunner:
                                        qmode=self.qmode,
                                        reference=self.reference))
         return self._fp
+
+    def replica(self, device) -> "LMRunner":
+        """This runner with its params (and model plan) on ``device``
+        (itself when they are there already)."""
+        if torch.device(device) == self.device:
+            return self
+        mp = self.model_plan
+        if mp is not None:
+            mp = dataclasses.replace(mp, params=_tree_to(mp.params, device))
+        return LMRunner(_tree_to(self.params, device), self.cfg,
+                        new_tokens=self.new_tokens, qmode=self.qmode,
+                        plan=self.plan, reference=self.reference,
+                        model_plan=mp)
 
     def _ctx(self):
         """The model plan's scoped dispatch tables (or nothing)."""
@@ -313,13 +355,27 @@ def _seeded_rng(retry_rng) -> np.random.RandomState:
 
 class ServeEngine(_SubmitRetryMixin):
     """Coalesce independent requests into batched dispatches on the plan
-    params' device."""
+    params' device, or data-parallel over ``mesh``: a sequence of devices
+    (``launch.mesh.make_serve_mesh()``), one replica on each.  ``None``
+    (the default) is the single-device path.  A mesh that names one card
+    more than once (two replicas sharing its params, run one after the
+    other) is a test layout for a one-card machine, not a serving mode."""
 
     def __init__(self, runner, *, max_batch: int = 8,
-                 flush_deadline_s: float = 0.005, max_pending: int = 4096,
-                 retry_rng=None,
+                 flush_deadline_s: float = 0.005, mesh=None,
+                 max_pending: int = 4096, retry_rng=None,
                  clock: Callable[[], float] = time.perf_counter):
         self.runner = runner
+        self.mesh = (None if mesh is None
+                     else tuple(torch.device(d) for d in mesh))
+        if self.mesh is not None:
+            from repro_torch.distributed.sharding import data_parallel
+
+            held = {}
+            self._replicas = [held.setdefault(d, runner.replica(d))
+                              for d in self.mesh]
+            self._dp = data_parallel(lambda r, x, key: r.forward(x, key),
+                                     self.mesh)
         self._rng = _seeded_rng(retry_rng)
         self.clock = clock
         self.max_pending = max_pending
@@ -384,19 +440,32 @@ class ServeEngine(_SubmitRetryMixin):
     # -- device side --------------------------------------------------------
 
     def _pad_to(self, n: int) -> int:
-        return min(_pow2_ceil(n), self.batcher.max_batch)
+        # capped at max_batch; with a mesh, rounded up to a multiple of the
+        # device count (which may exceed max_batch: every device gets rows)
+        padded = min(_pow2_ceil(n), self.batcher.max_batch)
+        n_data = 1 if self.mesh is None else len(self.mesh)
+        return -(-padded // n_data) * n_data
 
     def _stage(self, bucket: Bucket):
         """Start the host->device copy of one bucket: from a pinned host
-        buffer with ``non_blocking`` on the card, so it overlaps compute."""
+        buffer with ``non_blocking`` on the card, so it overlaps compute;
+        with a mesh, each shard to its device."""
+        from repro_torch.distributed.sharding import split_batch
+
         padded = self._pad_to(len(bucket.requests))
         host = torch.from_numpy(
             self.runner.collate([r.payload for r in bucket.requests], padded))
-        if self.device.type == "cuda":
-            dev = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            dev = host.to(self.device)
-        return bucket, padded, dev
+        devices = self.mesh or (self.device,)
+        if any(d.type == "cuda" for d in devices):
+            host = host.pin_memory()
+        if self.mesh is not None:
+            return bucket, padded, split_batch(host, self.mesh)
+        return bucket, padded, host.to(self.device, non_blocking=True)
+
+    def _forward(self, dev, key) -> torch.Tensor:
+        if self.mesh is None:
+            return self.runner.forward(dev, key)
+        return self._dp(self._replicas, dev, key)
 
     def _execute(self, buckets: list[Bucket]) -> None:
         """Launch bucket i, stage bucket i+1, harvest bucket i-1: at most
@@ -406,7 +475,7 @@ class ServeEngine(_SubmitRetryMixin):
         for i in range(len(buckets)):
             bucket, padded, dev = staged
             t_start = self.clock()
-            out = self.runner.forward(dev, bucket.key)
+            out = self._forward(dev, bucket.key)
             staged = self._stage(buckets[i + 1]) if i + 1 < len(buckets) else None
             if inflight is not None:
                 self._harvest(*inflight)

@@ -15,7 +15,9 @@ quantized ``--quant`` serves prequantized weights (``engine=serve``);
 the train-mode ``qdense`` (``engine=train``), as the reference does.  Decode is a Python loop over tokens (the reference's one-trace
 ``lax.scan``): each step runs the model once on the cache, which it
 updates in place.  ``--throughput`` drives the bucket engine
-(``launch/engine.ServeEngine`` + ``LMRunner``), ``--continuous`` the
+(``launch/engine.ServeEngine`` + ``LMRunner``; ``devices=N`` printed) on
+one device, or with ``--data-parallel`` over
+``launch.mesh.make_serve_mesh()`` (every visible card), ``--continuous`` the
 paged continuous-batching engine (``ContinuousLMEngine``), and
 ``--chaos-mtbf STEPS`` the resilient engine (``repro_torch.resilience``)
 under a seeded fault schedule with K-step decode epoch checkpoints
@@ -173,7 +175,10 @@ def run_throughput(params, cfg, qmode: str, args, model_plan=None) -> None:
 
     from repro_torch.launch.engine import (LMRunner, ServeEngine,
                                            run_offered_load, warm_engine)
+    from repro_torch.launch.mesh import make_serve_mesh
 
+    mesh = (make_serve_mesh(device_type=torch.device(args.device).type)
+            if args.data_parallel else None)
     prompts = _prompts(args.requests, args.prompt_len, cfg.vocab)
 
     def mk(max_batch):
@@ -181,13 +186,15 @@ def run_throughput(params, cfg, qmode: str, args, model_plan=None) -> None:
             LMRunner(params, cfg, new_tokens=args.new_tokens, qmode=qmode,
                      model_plan=model_plan),
             max_batch=max_batch,
-            flush_deadline_s=args.flush_deadline_ms / 1e3)
+            flush_deadline_s=args.flush_deadline_ms / 1e3, mesh=mesh)
 
     seq = run_offered_load(warm_engine(mk(1), prompts), prompts, None)
     eng = warm_engine(mk(args.batch), prompts)
     bat = run_offered_load(eng, prompts, None)
-    print(f"arch={cfg.name} device={args.device} requests={args.requests} "
-          f"prompt_len={args.prompt_len} new_tokens={args.new_tokens}")
+    n_dev = 1 if mesh is None else len(mesh)
+    print(f"arch={cfg.name} device={args.device} devices={n_dev} "
+          f"requests={args.requests} prompt_len={args.prompt_len} "
+          f"new_tokens={args.new_tokens}")
     print(f"sequential: {seq['achieved_rps']:.1f} req/s "
           f"p50={seq['p50_ms']}ms p99={seq['p99_ms']}ms")
     print(f"batch={args.batch}: {bat['achieved_rps']:.1f} req/s "
@@ -306,6 +313,12 @@ def main(argv=None):
                     help="time the signed engines per GEMM shape on the "
                          "device while compiling the plan")
     ap.add_argument("--throughput", action="store_true")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="--throughput: split each bucket over every "
+                         "visible card (launch.mesh.make_serve_mesh()); the "
+                         "replicas' forwards run one after another from "
+                         "one host thread, so a host-bound model serves "
+                         "fewer requests/s this way than on one card")
     ap.add_argument("--continuous", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)

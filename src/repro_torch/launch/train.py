@@ -1,26 +1,37 @@
-"""Training driver (port of ``repro/launch/train.py``): the LM trainer on
-one device, the card unless ``--device cpu``::
+"""Training driver (port of ``repro/launch/train.py``): the LM trainer,
+on the card unless ``--device cpu``::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
-      --smoke --steps 3 --device cpu
+      --smoke --steps 3 --device cpu [--devices 2 [--model 1]]
 
-Batches come from ``data.synthetic.lm_batch`` (seed 0); an encoder's
-frame features and a VLM's patch embeddings are drawn from a
-``torch.Generator`` seeded with the step.  Asking for more than one
-device raises: multi-device training comes with the distributed slice.
+``--devices 1`` trains on one device under the single-device plan.
+``--devices N`` trains over N ranks, one a device (NCCL on the cards,
+``gloo`` with ``--device cpu``): spawned here, or one per process when
+started by ``torchrun`` (which sets ``RANK``/``WORLD_SIZE``), over
+``launch.mesh.make_host_mesh(model=--model)`` and its ``make_plan``.
+(The reference takes its 16 x 16 production mesh whenever it sees more
+than one device, which no host short of 256 devices can build.)
+
+Batches come from ``data.synthetic.lm_batch`` (seed 0): the whole global
+batch on every rank, split over the mesh's ``data`` axis by the trainer;
+an encoder's frame features and a VLM's patch embeddings are drawn from
+a ``torch.Generator`` seeded with the step.  Only rank 0 logs; ``main``
+returns rank 0's history.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 
 import torch
 
-from repro_torch.configs import SINGLE, get_config
+from repro_torch.configs import SINGLE, get_config, make_plan
 from repro_torch.core.quant import PAPER_CONFIGS
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.train.optimizer import OptConfig, tree_leaves
-from repro_torch.train.trainer import DISTRIBUTED_SLICE, TrainConfig, Trainer
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 
 def make_batch_fn(cfg, batch: int, seq: int, device):
@@ -44,7 +55,7 @@ def make_batch_fn(cfg, batch: int, seq: int, device):
     return bf
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -56,34 +67,83 @@ def main(argv=None):
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
-                    help="torch device (the card by default)")
+                    help="torch device type (the card by default)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices to train on (one: the port trains on one "
-                         "device)")
-    args = ap.parse_args(argv)
+                    help="ranks to train over, one a device")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's 'model' (tensor-parallel) axis size")
+    return ap
 
-    if args.devices > 1:
-        raise SystemExit(f"--devices {args.devices}: " + DISTRIBUTED_SLICE)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is "
                            "false; pass --device cpu to train on the CPU")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
+        return _train(args, int(os.environ["RANK"]),
+                      int(os.environ["WORLD_SIZE"]), "env://")
+    if args.devices == 1:
+        return _train(args, 0, 1, None)
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        out = ctx.SimpleQueue()
+        mp.spawn(_rank_main, args=(args, f"file://{tmp}/rendezvous", out),
+                 nprocs=args.devices, join=True)
+        return out.get()
+
+
+def _rank_main(rank: int, args, init_method: str, out) -> None:
+    hist = _train(args, rank, args.devices, init_method)
+    if rank == 0:
+        out.put(hist)
+
+
+def _train(args, rank: int, world: int, init_method):
+    """One rank's run (``init_method`` None: one device, no process
+    group) -> its history."""
+    dist = torch.distributed
+    device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     if args.quant:
         cfg = dataclasses.replace(cfg, quant=PAPER_CONFIGS[args.quant])
+    mesh, plan = None, SINGLE
+    if init_method is not None:
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            torch.cuda.set_device(local)
+            device = torch.device("cuda", local)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=init_method, rank=rank, world_size=world)
+        from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
 
-    tr = Trainer(cfg, SINGLE,
-                 OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
-                 TrainConfig(steps=args.steps, log_every=10, ckpt_every=50,
-                             compress_grads=args.compress_grads),
-                 ckpt_dir=args.ckpt_dir, device=device)
-    if args.ckpt_dir and tr.restore():
-        print(f"resumed from step {tr.step}")
-    print(f"arch={cfg.name} quant={cfg.quant.tag()} device={device} "
-          f"params={sum(p.numel() for p in tree_leaves(tr.params))}")
-    return tr.run(make_batch_fn(cfg, args.batch, args.seq, device))
+        mesh = make_host_mesh(model=args.model, device_type=device.type)
+        plan = make_plan(mesh_shape_dict(mesh))
+    try:
+        tr = Trainer(cfg, plan,
+                     OptConfig(lr=args.lr, warmup_steps=10,
+                               total_steps=args.steps),
+                     TrainConfig(steps=args.steps, log_every=10,
+                                 ckpt_every=50,
+                                 compress_grads=args.compress_grads),
+                     ckpt_dir=args.ckpt_dir, device=device, mesh=mesh)
+        log = print if rank == 0 else (lambda *a, **k: None)
+        if args.ckpt_dir and tr.restore():
+            log(f"resumed from step {tr.step}")
+        n = sum(p.numel() for p in tree_leaves(tr.params))
+        log(f"arch={cfg.name} quant={cfg.quant.tag()} device={device} "
+            f"devices={world} params={n}")
+        return tr.run(make_batch_fn(cfg, args.batch, args.seq, device),
+                      log=log)
+    finally:
+        if init_method is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -179,9 +179,23 @@ def expand_kv(k, v, n_q_real: int, n_q_padded: int):
     if hkv == n_q_padded:
         return k, v
     g = max(n_q_real // hkv, 1)
-    idx = torch.clamp(torch.arange(n_q_padded, device=k.device) // g,
-                      max=hkv - 1)
-    return k.index_select(2, idx), v.index_select(2, idx)
+
+    # each KV head repeated g times, then the last one for the padded
+    # heads: a broadcast and a reshape rather than an index gather, which
+    # DTensor differentiates on every torch it runs on
+    def one(t):
+        b, s, _, hd = t.shape
+        out = t[:, :, :, None, :].expand(b, s, hkv, g, hd).reshape(
+            b, s, hkv * g, hd)
+        extra = n_q_padded - hkv * g
+        if extra > 0:
+            out = torch.cat([out, t[:, :, -1:].expand(b, s, extra, hd)],
+                            dim=2)
+        # contiguous, as the kernels take it (one KV head broadcast to
+        # g would otherwise stay a stride-0 view)
+        return out[:, :, :n_q_padded].contiguous()
+
+    return one(k), one(v)
 
 
 def attn_full(q, k, v, *, causal: bool, window: Optional[int], q_pos,
@@ -382,38 +396,50 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
         else:
             raise ValueError(f"unknown attention mode {mode!r} "
                              f"(train | prefill | decode | paged)")
-        kv, vv = expand_kv(kv, vv, cfg.n_heads, hp)
         if mode == "decode":
             engine = "full"
         elif engine is None:
             engine = resolve_attn_engine(
                 cfg, seq_q=S, seq_kv=kv.shape[1], heads=hp, causal=causal,
                 window=window, qmode=qmode)
-        if engine == "banded" and window is not None and S > 2 * window:
-            out = attn_banded(q, kv, vv, window=window, q_pos=q_pos,
-                              kv_pos=kv_pos)
-        elif engine == "flash" and S == kv.shape[1]:
-            # flash tiles contiguous prefill positions; ragged cache
-            # geometries take the position-indexed chunked scan below
-            from repro_torch.kernels.attn_flash import attn_flash
 
-            if torch.is_grad_enabled() and q.requires_grad:
-                raise RuntimeError(
-                    "the flash attention engine has no backward: "
-                    "differentiate with qmode='train' (never flash) or run "
-                    "the serve forward under torch.no_grad()")
-            bits = min(cfg.quant.a_bits, 8)
-            out = attn_flash(q, kv, vv, causal=bool(causal), window=window,
-                             q_bits=bits, k_bits=bits,
-                             reference=reference).to(q.dtype)
-        elif engine in ("chunked", "banded", "flash"):
-            out = attn_chunked(q, kv, vv, causal=causal, window=window,
-                               q_pos=q_pos, kv_pos=kv_pos)
-        elif engine == "full":
-            out = attn_full(q, kv, vv, causal=causal, window=window,
-                            q_pos=q_pos, kv_pos=kv_pos)
-        else:
+        def core(q, kv, vv):
+            if engine == "banded" and window is not None and S > 2 * window:
+                return attn_banded(q, kv, vv, window=window, q_pos=q_pos,
+                                   kv_pos=kv_pos)
+            if engine == "flash" and S == kv.shape[1]:
+                # flash tiles contiguous prefill positions; ragged cache
+                # geometries take the position-indexed chunked scan below
+                from repro_torch.kernels.attn_flash import attn_flash
+
+                if torch.is_grad_enabled() and q.requires_grad:
+                    raise RuntimeError(
+                        "the flash attention engine has no backward: "
+                        "differentiate with qmode='train' (never flash) or "
+                        "run the serve forward under torch.no_grad()")
+                bits = min(cfg.quant.a_bits, 8)
+                return attn_flash(q, kv, vv, causal=bool(causal),
+                                  window=window, q_bits=bits, k_bits=bits,
+                                  reference=reference).to(q.dtype)
+            if engine in ("chunked", "banded", "flash"):
+                return attn_chunked(q, kv, vv, causal=causal, window=window,
+                                    q_pos=q_pos, kv_pos=kv_pos)
+            if engine == "full":
+                return attn_full(q, kv, vv, causal=causal, window=window,
+                                 q_pos=q_pos, kv_pos=kv_pos)
             raise ValueError(f"unknown attention engine {engine!r}")
+
+        def expand(kv, vv):
+            return expand_kv(kv, vv, cfg.n_heads, hp)
+
+        if mode == "train":
+            # a train step on a mesh runs the core on each rank's own batch
+            # rows and heads; plain tensors go straight through
+            from repro_torch.distributed.sharding import per_head
+
+            out = per_head(core, q, kv, vv, expand)
+        else:
+            out = core(q, *expand(kv, vv))
     hm = _head_mask(cfg, plan, out.dtype, out.device)
     if hm is not None:
         out = out * hm[None, None, :, None]
@@ -523,6 +549,17 @@ def init_attention(gen, cfg, plan, n: int, device) -> dict:
     return p
 
 
+def attention_axes(cfg) -> dict:
+    """Logical axes of one attention block's params (the reference's
+    ``init_attention`` axes; no leading ``"layers"``)."""
+    a = {"ln": ("embed",), "wq": ("embed", "heads"),
+         "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+         "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = a["k_norm"] = (None,)
+    return a
+
+
 def init_mlp(gen, cfg, n: int, device, d_ff: Optional[int] = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     p = {"ln": torch.ones((n, d), device=device),
@@ -531,6 +568,14 @@ def init_mlp(gen, cfg, n: int, device, d_ff: Optional[int] = None) -> dict:
         p["w_gate"] = dense_init(gen, (n, d, ff), d, device)
     p["w_out"] = dense_init(gen, (n, ff, d), ff, device)
     return p
+
+
+def mlp_axes(cfg) -> dict:
+    a = {"ln": ("embed",), "w_in": ("embed", "mlp")}
+    if cfg.act == "swiglu":
+        a["w_gate"] = ("embed", "mlp")
+    a["w_out"] = ("mlp", "embed")
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -562,6 +607,15 @@ def init_moe(gen, cfg, plan, n: int, device) -> dict:
         p["shared"] = init_mlp(gen, cfg, n, device,
                                d_ff=eff * cfg.n_shared_experts)
     return p
+
+
+def moe_axes(cfg) -> dict:
+    a = {"ln": ("embed",), "router": ("embed", None),
+         "w1": ("expert", "embed", "mlp"), "wg": ("expert", "embed", "mlp"),
+         "w2": ("expert", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        a["shared"] = mlp_axes(cfg)
+    return a
 
 
 def moe_route(p, h: torch.Tensor, cfg) -> dict:

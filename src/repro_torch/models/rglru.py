@@ -41,6 +41,14 @@ def init_rec_block(gen, cfg, plan, n: int, device) -> dict:
     }
 
 
+def rec_block_axes(cfg) -> dict:
+    """Logical axes of one RG-LRU block's params (the reference's)."""
+    return {"ln": ("embed",), "wx": ("embed", "mlp"), "wy": ("embed", "mlp"),
+            "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "wr": (None, "mlp"), "wi": (None, "mlp"), "lam": ("mlp",),
+            "wo": ("mlp", "embed")}
+
+
 def _causal_conv1d(x, w, b, carry):
     """Depthwise causal conv.  x (B,S,W), w (cw,W), carry (B,cw-1,W).  The
     taps are summed in tap order, as the reference's Python ``sum``."""

@@ -40,6 +40,21 @@ def init_rwkv_block(gen, cfg, plan, n: int, device) -> dict:
     return p
 
 
+def rwkv_block_axes(cfg) -> dict:
+    """Logical axes of one RWKV-6 block's params (the reference's)."""
+    a = {"ln1": ("embed",), "ln2": ("embed",), "mu_base": ("embed",),
+         "mus": (None, "embed"), "lora_A": ("embed", None, None),
+         "lora_B": (None, None, "embed"), "lam": ("embed",),
+         "u": ("heads", None)}
+    for nm in ("wr", "wk", "wv", "wg"):
+        a[nm] = ("embed", "heads")
+    a["wo"] = ("heads", "embed")
+    a["ln_x"] = ("heads", None)
+    a.update(cm_mu_k=("embed",), cm_mu_r=("embed",), cm_wk=("embed", "mlp"),
+             cm_wv=("mlp", "embed"), cm_wr=("embed", "heads"))
+    return a
+
+
 def _shift(x, last):
     """Token shift: x_{t-1}, with the carried-in ``last`` (B,d) at t=0."""
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)

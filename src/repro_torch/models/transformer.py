@@ -37,9 +37,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import rglru, rwkv6
-from .layers import (attention_fwd, dense_init, init_attention, init_mlp,
-                     init_moe, mlp_fwd, moe_fwd, paged_rows, qdense,
-                     rms_norm, rope_tables)
+from .layers import (attention_axes, attention_fwd, dense_init,
+                     init_attention, init_mlp, init_moe, mlp_axes, mlp_fwd,
+                     moe_axes, moe_fwd, paged_rows, qdense, rms_norm,
+                     rope_tables)
 
 ATTN_KINDS = ("attn", "moe", "attn_local")
 BLOCK_KINDS = ATTN_KINDS + ("rec", "rwkv")
@@ -91,6 +92,47 @@ def init_lm(gen: torch.Generator, cfg, plan, device=None) -> dict:
         params["lm_head"] = dense_init(gen, (d, cfg.padded_vocab), d, device,
                                        scale=0.02)
     return params
+
+
+def _kind_axes(kind: str, cfg) -> dict:
+    if kind in ("attn", "attn_local"):
+        return {"attn": attention_axes(cfg), "mlp": mlp_axes(cfg)}
+    if kind == "moe":
+        return {"attn": attention_axes(cfg), "moe": moe_axes(cfg)}
+    if kind == "rec":
+        return {"rec": rglru.rec_block_axes(cfg), "mlp": mlp_axes(cfg)}
+    if kind == "rwkv":
+        return rwkv6.rwkv_block_axes(cfg)
+    raise ValueError(kind)
+
+
+def _stack_axes(axes):
+    """A leading ``"layers"`` on every leaf of a per-block axes tree."""
+    if isinstance(axes, dict):
+        return {k: _stack_axes(v) for k, v in axes.items()}
+    return ("layers",) + tuple(axes or ())
+
+
+def lm_param_axes(cfg, plan) -> dict:
+    """The logical axes of :func:`init_lm`'s params, leaf for leaf: a
+    tuple of names (``"embed"``, ``"heads"``, ``"vocab"``, ...) per
+    tensor dim, the reference's ``init_lm`` axes tree.  ``plan`` is taken
+    as the reference's is (its head padding shapes ``wq``/``wo``, not
+    their axes)."""
+    del plan
+    axes: dict[str, Any] = {}
+    if cfg.frame_input:
+        axes["frame_proj"] = (None, "embed")
+    else:
+        axes["embed"] = ("vocab_in", "embed")
+    if cfg.n_patches:
+        axes["vision_proj"] = (None, "embed")
+    axes["final_norm"] = ("embed",)
+    axes["blocks"] = {kind: _stack_axes(_kind_axes(kind, cfg))
+                      for kind in dict.fromkeys(cfg.blocks_pattern)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def _kind_counts(cfg) -> dict:
@@ -340,7 +382,11 @@ def embed_inputs(params, cfg, tokens=None, patch_embeds=None,
         ct = torch.promote_types(frame_feats.dtype, cd)
         h = (frame_feats.to(ct) @ w.to(ct)).to(cd)
     else:
-        h = params["embed"][tokens.long()].to(cd)
+        # the embedding op, not an index: the same gather, and its
+        # backward is the one DTensor splits over a batch-split token
+        # tensor on every torch (index_put's fails on 2.11)
+        h = torch.nn.functional.embedding(tokens.long(),
+                                          params["embed"]).to(cd)
     if cfg.n_patches and patch_embeds is not None:
         vis = patch_embeds.to(cd) @ params["vision_proj"].to(cd)
         h = torch.cat([vis, h], dim=1)

@@ -67,10 +67,12 @@ class DecodeCheckpointer:
     def latest(self, tag: str):
         return self._ck.latest_step(tag)
 
-    def restore(self, tag: str, template_fn, device="cpu"):
+    def restore(self, tag: str, template_fn, device=None):
         """``(committed_epochs, state)`` for ``tag``, tensors on
-        ``device``, or None.  ``template_fn(emitted) -> state`` supplies
-        the structure from the model config, not from a live object."""
+        ``device`` (None: each on its template leaf's device, as
+        ``train.checkpoint.Checkpointer.restore`` lands them), or None.
+        ``template_fn(emitted) -> state`` supplies the structure from the
+        model config, not from a live object."""
         step = self._ck.latest_step(tag)
         if step is None:
             return None

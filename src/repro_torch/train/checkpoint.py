@@ -16,6 +16,13 @@ write is in flight.  bfloat16 has no numpy dtype: its bit patterns are
 stored as uint16 and restored through the template's dtype.  An async
 write that fails re-raises at :meth:`Checkpointer.wait` or at the next
 :meth:`Checkpointer.save` as :class:`CheckpointWriteError`.
+
+DTensor leaves (a trainer over a mesh) are saved as full arrays, in the
+same format: every rank gathers them (all ranks call ``save`` together),
+rank 0 alone writes, and :meth:`Checkpointer.wait` ends with a barrier,
+so no rank reads a checkpoint before it is published.  A restore
+re-distributes each stored array to its template leaf's placements on the
+template's mesh, which is what elastic remesh stands on.
 """
 from __future__ import annotations
 
@@ -44,9 +51,18 @@ def _leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of one leaf that no later in-place write can reach."""
+    """A host copy of one leaf that no later in-place write can reach (a
+    DTensor's full array)."""
     if torch.is_tensor(leaf):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
@@ -61,7 +77,13 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 def _from_host(arr: np.ndarray, like, device):
     """``arr`` in the type of the template leaf ``like``: a tensor of its
     dtype on ``device`` (None: on ``like``'s device, the CPU for a meta
-    leaf), a numpy array of its dtype, or a Python number."""
+    leaf; a DTensor ``like``: distributed to its placements on its mesh),
+    a numpy array of its dtype, or a Python number."""
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        full = _from_host(arr, like.to_local(), device)
+        return distribute_tensor(full, like.device_mesh, like.placements)
     if torch.is_tensor(like):
         # np.ascontiguousarray would make a 0-d array 1-d
         arr = np.require(arr, requirements="C")
@@ -103,6 +125,7 @@ class Checkpointer:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False       # a distributed save awaits its barrier
         self.last_bytes = 0         # array bytes of the latest save
         os.makedirs(directory, exist_ok=True)
         # a writer killed mid-write leaves a .tmp_* directory that was never
@@ -118,9 +141,14 @@ class Checkpointer:
         """Returns the final path (renamed into place once written).  The
         state is copied to host before this returns."""
         self.wait()  # one in-flight save at a time
+        distributed = any(_is_dtensor(v) for _, v in _leaves(state))
         flat = _flatten(state)
         self.last_bytes = sum(a.nbytes for a in flat.values())
         final = os.path.join(self.dir, f"{tag}_{step:08d}")
+        if distributed:
+            self._barrier = True
+            if torch.distributed.get_rank() != 0:
+                return final
 
         def _write():
             tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
@@ -163,10 +191,14 @@ class Checkpointer:
         return final
 
     def wait(self):
-        """Block until the in-flight save completes; raise if it failed."""
+        """Block until the in-flight save completes; raise if it failed.
+        After a save of DTensors every rank meets at a barrier here."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise CheckpointWriteError(

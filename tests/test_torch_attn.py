@@ -420,3 +420,23 @@ def test_flash_feasibility_needs_quantized_prefill():
         **base, quantized=True))[0]
     assert not ops.attn_engine_feasible("full", ops.AttnShape(
         **base, page_size=16))[0]
+
+
+@pytest.mark.parametrize("hkv,nq,npad", [(5, 15, 15), (5, 15, 16),
+                                         (1, 16, 16), (2, 4, 4), (4, 2, 2),
+                                         (5, 7, 8), (8, 8, 8)])
+def test_expand_kv_equals_reference_gather_and_is_contiguous(hkv, nq, npad):
+    """GQA's KV expansion (a broadcast and a reshape, which DTensor can
+    differentiate) gives the reference's ``expand_kv`` gather bit for bit,
+    as contiguous tensors (the kernels refuse a stride-0 view: one KV head
+    for 16 query heads, recurrentgemma's)."""
+    from repro.models.layers import expand_kv as jexpand_kv
+    from repro_torch.models.layers import expand_kv
+
+    rs = np.random.RandomState(hkv * 100 + npad)
+    k, v = (rs.randn(2, 3, hkv, 8).astype(np.float32) for _ in range(2))
+    got = expand_kv(torch.from_numpy(k), torch.from_numpy(v), nq, npad)
+    want = jexpand_kv(jnp.asarray(k), jnp.asarray(v), nq, npad)
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

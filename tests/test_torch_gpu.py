@@ -836,3 +836,108 @@ def test_checkpoint_restore_lands_on_the_card(cuda_device, tmp_path):
     assert back["step"].shape == () and int(back["step"]) == 3
     _, host = ck.restore(state, device="cpu")
     assert host["w"].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# several cards: per-device shared-memory opt-in, the data-parallel engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_smem_opt_in_is_per_card(cuda_device):
+    """``conv_implicit``, ``bitgemm_packed``, ``attn_flash`` and
+    ``attn_paged`` opt in to more than 48 KB of shared memory once per
+    card (the attribute lives in each device's context): each launches on
+    every visible card, under ``torch.cuda.device(i)``, equal to its plain
+    version.  Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards: the opt-in is per device ({n} here)")
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        with torch.cuda.device(dev):
+            x = torch.randint(0, 16, (8, 10, 10, 256), generator=gen,
+                              device=dev, dtype=torch.uint8)
+            wl = torch.randint(0, 2, (9 * 256, 256), generator=gen,
+                               device=dev, dtype=torch.uint8)
+            kw = dict(kh=3, kw=3, stride=1, padding="SAME", a_bits=4,
+                      w_bits=1)
+            assert torch.equal(conv_implicit(x, wl, 0.05, 0.5, **kw),
+                               conv_implicit_plain(x, wl, 0.05, 0.5, **kw))
+            a = torch.randint(0, 2 ** 31 - 1, (4, 70, 16), generator=gen,
+                              device=dev, dtype=torch.int32)
+            w = torch.randint(0, 2 ** 31 - 1, (1, 130, 16), generator=gen,
+                              device=dev, dtype=torch.int32)
+            assert torch.equal(bitgemm_packed(a, w, a_bits=4, w_bits=1),
+                               bitgemm_packed_plain(a, w, a_bits=4,
+                                                    w_bits=1))
+            q, k, v = (torch.randn((1, 200, 2, 256), generator=gen,
+                                   device=dev) for _ in range(3))
+            got = A.attn_flash(q, k, v, causal=True)
+            ref = A.attn_flash(q, k, v, causal=True, reference=True)
+            assert float((got - ref).abs().max()) <= _attn_tol(
+                v, torch.float32)
+            case = _paged_case(dev, gen, b=2, s=1, hp=4, hkv=2, hd=64,
+                               ps=16, np_=20, p=6, dtype=torch.float32)
+            pkw = dict(causal=True, quantized=True, n_q_heads=4)
+            got = A.attn_paged(*case, **pkw)
+            ref = A.attn_paged(*case, reference=True, **pkw)
+            ok = case[5] >= 0
+            assert float((got[ok] - ref[ok]).abs().max()) <= _attn_tol(
+                case[2], torch.float32)
+            torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+def test_make_serve_mesh_is_none_on_one_card(cuda_device):
+    """The serving mesh is every visible card, or None on one (the
+    engine's single-device path), as the reference's."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_serve_mesh()
+    if n == 1:
+        assert mesh is None
+    else:
+        assert mesh == tuple(torch.device("cuda", i) for i in range(n))
+
+
+@pytest.mark.gpu
+def test_two_replica_cnn_engine_on_one_card(cuda_device):
+    """``ServeEngine(mesh=(cuda:0, cuda:0))``: two replicas on one card
+    (a test layout, not a serving mode).  Each 8-row dispatch runs as two
+    4-row replica forwards, so its results equal the one-device engine's
+    at ``max_batch=4`` bit for bit, with exactly twice a 4-row dispatch's
+    kernel launches.  Against one device's 8-row dispatch the float ops
+    around the kernels (cuDNN's fp first layer among them) may sum in
+    another order: same argmax, within chip_smoke.py's alone-vs-batched
+    tolerance, 0.1 x max|logit| (``LOGIT_TOL_FRAC``)."""
+    from repro_torch.launch.engine import CNNRunner, ServeEngine
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    compiled = api.build(svhn_cnn_spec(16), PAPER_CONFIGS["w1a8"],
+                         params=init_cnn(gen, svhn_cnn_spec(16))).compile(
+        target="cuda", batch_hints=(1, 8))
+    rs = np.random.RandomState(5)
+    images = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+              for _ in range(16)]
+    runner = CNNRunner(compiled.plan)
+    four = ServeEngine(runner, max_batch=4)
+    _lib.reset_launches()
+    want = np.stack([r.value for r in four.serve(images[:4])])
+    per_four = dict(_lib.LAUNCHES)
+    assert per_four["conv_implicit"] + per_four["fused_qgemm"] > 0
+    two = ServeEngine(runner, max_batch=8, mesh=(cuda_device, cuda_device))
+    _lib.reset_launches()
+    got = np.stack([r.value for r in two.serve(images[:8])])
+    assert _lib.LAUNCHES == {k: 2 * v for k, v in per_four.items()}
+    np.testing.assert_array_equal(
+        got, np.concatenate([want, np.stack(
+            [r.value for r in four.serve(images[4:8])])]))
+    full = np.stack([r.value for r in two.serve(images)])
+    alone = np.stack([r.value for r in four.serve(images)])
+    np.testing.assert_array_equal(full, alone)
+    one = np.stack([r.value for r in ServeEngine(runner, max_batch=8)
+                    .serve(images)])
+    assert (one.argmax(-1) == full.argmax(-1)).all()
+    assert np.abs(one - full).max() <= 0.1 * np.abs(one).max()

@@ -266,6 +266,32 @@ def test_bf16_cache_round_trip_bit_for_bit(tmp_path):
                        k.view(torch.int16))
 
 
+def test_decode_checkpointer_restores_onto_the_templates_device(tmp_path):
+    """``DecodeCheckpointer.restore`` lands each tensor on its template
+    leaf's device unless ``device=`` names one (a meta template leaf: the
+    CPU), as ``Checkpointer.restore`` does; it never moves a decode state
+    to the CPU on its own."""
+    from repro_torch.resilience.checkpoints import DecodeCheckpointer
+
+    ck = DecodeCheckpointer(str(tmp_path))
+    state = dict(tok=torch.arange(6, dtype=torch.int32).reshape(2, 3),
+                 k=torch.ones(2, 4, dtype=torch.bfloat16))
+    ck.commit("dec0", 1, state, emitted=3)
+
+    def template(emitted):
+        return dict(tok=torch.zeros(2, emitted, dtype=torch.int32,
+                                    device="meta"),
+                    k=torch.zeros(2, 4, dtype=torch.bfloat16))
+
+    step, back = ck.restore("dec0", template)
+    assert step == 1
+    assert back["tok"].device.type == back["k"].device.type == "cpu"
+    assert torch.equal(back["tok"], state["tok"])
+    assert torch.equal(back["k"], state["k"])
+    _, there = ck.restore("dec0", template, device="meta")
+    assert there["tok"].is_meta and there["k"].is_meta
+
+
 def test_checkpoint_async_write_failure_raises(tmp_path, monkeypatch):
     ck = C.Checkpointer(str(tmp_path), async_save=True)
     state = dict(w=torch.ones(2, 2))
