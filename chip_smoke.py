@@ -218,11 +218,33 @@ Phases, each of which makes the script exit nonzero when it fails:
    trainer's gradients, equal to the local path at world 1; with four or
    more cards the trainer at ``(world / 2, 2)``, the pipeline at S = 4
    and the svhn engine over every card (``"not run: 1 card"`` on one);
+5h. the dry-run tooling, one ``DRYRUN`` line: ``python -m
+   repro_torch.launch.dryrun`` on SmolLM-360M ``train_4k`` (16 x 16) and
+   recurrentgemma-9b ``prefill_32k --analysis --multi-pod`` (2 x 16 x 16,
+   ``rglru_assoc`` and ``full_attn_analysis`` at full config), each in a
+   CPU-only interpreter on a fake process group: exit 0, ``ok`` and the
+   reference's keys; ``python -m repro_torch.launch.sweep`` over
+   ``smollm-360m:decode_32k`` twice, the second run skipping the cell;
+   before them, ``launch.steps.build_cell``'s one-device SmolLM-360M W1A8
+   cells on the card (a train step of 8 x 64, a prequantized prefill of
+   2 x 2048 with its 32 ``attn_flash`` launches), each run 3 times: their
+   ms, ``hlo_analysis.StepCounter``'s flops on the card equal to the same
+   cell's on meta, the ``Roofline`` beside the measured time and the
+   model flops' share of the bf16 peak; the families phase (5d) also runs
+   recurrentgemma-9b's prefill in the parallel RG-LRU form
+   (``rglru_assoc``): one recurrent block's float32 h within 1e-5 x
+   max|h| of the sequential scan's on the model's own inputs, the last
+   logits under the families' witness gate, both prefill times
+   (``RGLRU_ASSOC`` line);
 6. one JSON line listing the kernels (with the families' and the
    modalities' launches, and the train phase's handoff launches), then
    the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
+``--phase NAME`` (cnn, bitplane, lm, resilience, plan, analysis,
+families, modalities, fleet, train, dist, dryrun) runs the build and that
+phase alone (plan after lm, analysis after lm and plan: the phases it
+reads), without the kernel phases and the kernels line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -505,6 +527,30 @@ ANALYSIS_CONV = dict(h=4, cin=64, cout=64)
 ANALYSIS_FLASH = dict(b=1, s=256, h=4)
 ANALYSIS_PAGED = dict(b=2, p=8, ps=16, h=4, np_=32)
 
+# the dry-run phase: launch.dryrun's cells, each in a CPU-only interpreter
+# on a fake process group (no device): SmolLM-360M train_4k on 16 x 16,
+# and recurrentgemma-9b prefill_32k with the analysis toggles on 2 x 16 x
+# 16 (``constrain_acts``: the residual stream batch-split, without which
+# DTensor's sharding propagation on the 3-D mesh takes minutes a block);
+# the sweep over one cell, twice (the second run skips it); then
+# build_cell's one-device SmolLM-360M W1A8 cells live on the card from
+# DRY_SEED: a train step of TRAIN_LM's 8 x 64 and a prequantized serve
+# prefill of 2 x 2048 (32 attn_flash), each run DRY_RUNS times, its flops
+# on the card equal to the same cell's on meta
+DRY_CELLS = (("smollm-360m", "train_4k", ()),
+             ("recurrentgemma-9b", "prefill_32k",
+              ("--analysis", "--multi-pod", "--set", "constrain_acts=1")))
+DRY_SWEEP = "smollm-360m:decode_32k"
+DRY_LIVE = (("train", 8, 64, False), ("prefill", 2, 2048, True))
+DRY_RUNS, DRY_SEED, DRY_TIMEOUT_S = 3, 11, 600
+# the reference's result keys of a dry-run cell
+DRY_KEYS = {"arch", "shape", "mesh", "chips", "ok", "lower_s", "compile_s",
+            "memory", "collectives", "roofline", "flops", "bytes_accessed"}
+# the families phase's recurrentgemma-9b prefill again in the parallel
+# form (rglru_assoc): one recurrent block's float32 h held to the
+# sequential scan's on the model's own inputs (x max|h|)
+RG_ASSOC_H_TOL = 1e-5
+
 # the train phase: the paper's CNN (svhn at full width 64, W1A4, batch
 # 32) under power failures through IntermittentTrainer, then served on the
 # card's kernels (its 6 quantized convs: 5 on conv_implicit, the 1x1 one
@@ -573,6 +619,16 @@ import chip_smoke
 from repro_torch.fleet import TraceSpec
 specs = [TraceSpec.from_json(d) for d in json.load(sys.stdin)]
 print(json.dumps(chip_smoke.fleet_study(specs)[0], sort_keys=True))
+"""
+
+
+# the step counter's readings on this machine's torch (a CPU-only child:
+# argv[1] the repository root), one JSON line
+DRY_FACTS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke.counter_facts()))
 """
 
 
@@ -2753,6 +2809,10 @@ def _family_run(arch: str, cut, prompt_len: int, new: int,
               f"{arch}: the kernels move the prefill's last logits by "
               f"{gap['max_abs_diff']}, over {FAM_GAP_FACTOR} x the "
               f"reordered plain version's {re_gap['max_abs_diff']}")
+        if "rec" in cfg.blocks_pattern:
+            out["rglru_assoc"] = _assoc_prefill(params, cfg, toks,
+                                                plain_last, re_gap,
+                                                n_attn)
         out.update(
             kernels_in_context=ctx.report(f"{arch} bucket"),
             oracle=("serve_once on the same padded batch, attention "
@@ -2786,6 +2846,72 @@ def _family_run(arch: str, cut, prompt_len: int, new: int,
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _assoc_prefill(params, cfg, toks, plain_last, re_gap, n_attn) -> dict:
+    """recurrentgemma's prefill with ``rglru_assoc=True`` on the same
+    params: its first recurrent block's scan (the model's own inputs,
+    captured from the sequential prefill's first call) in both forms,
+    float32 h within RG_ASSOC_H_TOL x max|h|; the prefill's last logits
+    under the families' witness gate (FAM_GAP_FACTOR x the reordered plain
+    version's gap to the sequential plain run); its launches; both
+    prefill times (each the second of two runs)."""
+    import dataclasses
+
+    from repro_torch.configs import SINGLE
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import make_prefill
+    from repro_torch.models import rglru
+
+    seen = []
+    orig = rglru._rglru_scan
+    rglru._rglru_scan = lambda xg, a, h0: (
+        seen.append((xg, a, h0)) if not seen else None, orig(xg, a, h0))[1]
+    try:
+        make_prefill(params, cfg, SINGLE, "serve", False)(toks)
+    finally:
+        rglru._rglru_scan = orig
+    xg, a, h0 = seen[0]
+    h_seq, _ = rglru._rglru_scan(xg, a, h0)
+    h_par, _ = rglru._rglru_assoc(xg, a, h0)
+    h_gap = float((h_par - h_seq).abs().max()) / float(h_seq.abs().max())
+    check(h_gap <= RG_ASSOC_H_TOL, f"{cfg.name}: the parallel RG-LRU scan "
+          f"is {h_gap} x max|h| from the sequential one")
+    del seen, xg, a, h0, h_seq, h_par
+    out = dict(block_h_gap_over_max_h=h_gap, h_tol=RG_ASSOC_H_TOL,
+               scan_shape=list(toks.shape) + [cfg.lru_width])
+    last = {}
+    for name, c in (("sequential", cfg),
+                    ("assoc", dataclasses.replace(cfg, rglru_assoc=True))):
+        step = make_prefill(params, c, SINGLE, "serve", False)
+        for _ in range(2):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = step(toks)
+            last[name] = logits[:, -1, :cfg.vocab].float()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            del logits
+        out[f"{name}_prefill_ms"] = ms
+        out[f"{name}_launches"] = {k: v for k, v in _lib.LAUNCHES.items()
+                                   if v}
+        check(_lib.LAUNCHES["attn_flash"] == n_attn,
+              f"{cfg.name} {name}: {_lib.LAUNCHES['attn_flash']} attn_flash "
+              f"launches, not {n_attn}")
+    gap = _logit_gap(last["assoc"], plain_last)
+    check(bool(torch.isfinite(last["assoc"]).all()),
+          f"{cfg.name} assoc: logits")
+    check(gap["max_abs_diff"] <= FAM_GAP_FACTOR * re_gap["max_abs_diff"],
+          f"{cfg.name} assoc: the prefill's last logits move by "
+          f"{gap['max_abs_diff']}, over {FAM_GAP_FACTOR} x the reordered "
+          f"plain version's {re_gap['max_abs_diff']}")
+    out["prefill_last_logits_vs_plain"] = gap
+    print(f"RGLRU_ASSOC {cfg.name} sequential "
+          f"{out['sequential_prefill_ms']:.1f} ms, assoc "
+          f"{out['assoc_prefill_ms']:.1f} ms, block h gap {h_gap:.3e}",
+          flush=True)
     return out
 
 
@@ -4116,6 +4242,259 @@ def _dist_serve_mesh(mesh, images) -> dict:
         serving_window=serve_window(dp, images)[0])
 
 
+def _dry_cli(module: str, *args) -> subprocess.Popen:
+    """``python -m MODULE ARGS`` from the repository root in a CPU-only
+    interpreter (the dry run touches no device), started."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _dry_wait(tag: str, proc: subprocess.Popen, t0: float) -> tuple:
+    try:
+        log, _ = proc.communicate(timeout=DRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"DRYRUN {tag}: over {DRY_TIMEOUT_S} s")
+    check(proc.returncode == 0, f"DRYRUN {tag}: exit {proc.returncode}: "
+                                f"{log[-3000:]}")
+    return log, time.perf_counter() - t0
+
+
+def _dry_cell(path: str, tag: str, chips: int) -> dict:
+    with open(path) as f:
+        (res,) = json.load(f)
+    check(res.get("ok") is True and set(res) == DRY_KEYS,
+          f"DRYRUN {tag}: ok {res.get('ok')}, keys {sorted(res)}")
+    check(res["chips"] == chips and res["flops"] > 0
+          and sum(res["collectives"]["counts"].values()) > 0,
+          f"DRYRUN {tag}: chips {res['chips']}, flops {res['flops']}, "
+          f"collectives {res['collectives']['counts']}")
+    return res
+
+
+def counter_facts() -> dict:
+    """What ``hlo_analysis.StepCounter`` and torch's ``FlopCounterMode``
+    read, on this torch, for the cases the counter's design rests on: a
+    Shard(0) x Shard(1) product of (128, 4096) @ (4096, 16384) and its
+    weight gradient on a fake 16 x 16 mesh (the counter counts the local
+    products: 4·8·4096·1024 if DTensor keeps the shards, more where it
+    gathers one; FlopCounterMode counts the global op, and the op DTensor
+    propagates shapes with on its first call),
+    ``torch._int_mm`` (FlopCounterMode: 0) and RWKV-6's WKV scan (the
+    read-out einsum counted, 2·B·S·H·K·V, the rest elementwise)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import rwkv6
+
+    def both(fn):
+        # FlopCounterMode first: before DTensor caches its shape
+        # propagation, and before the counter registers torch._int_mm
+        fc = FlopCounterMode(display=False)
+        with fc:
+            fn()
+        with ha.StepCounter() as c:
+            fn()
+        return dict(step_counter=c.flops,
+                    flop_counter_mode=float(fc.get_total_flops()))
+
+    out = dict(torch=torch.__version__)
+    a = torch.zeros((24, 64), dtype=torch.int8)
+    b = torch.zeros((64, 32), dtype=torch.int8)
+    out["int_mm"] = dict(both(lambda: torch._int_mm(a, b)),
+                         expected=2.0 * 24 * 64 * 32)
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        x = distribute_tensor(torch.empty(128, 4096, device="meta"), mesh,
+                              [Shard(0), Replicate()])
+        w = distribute_tensor(torch.empty(4096, 16384, device="meta"), mesh,
+                              [Replicate(), Shard(1)]).requires_grad_()
+        out["sharded_matmul_fwd_wgrad"] = dict(
+            both(lambda: (x @ w).sum().backward()),
+            local_if_kept=4.0 * 8 * 4096 * 1024,
+            global_=4.0 * 128 * 4096 * 16384)
+    B, S, H, K = 2, 8, 4, 16
+    r = torch.rand(B, S, H, K)
+    out["wkv_scan"] = dict(both(lambda: rwkv6._wkv_scan(
+        r, r, r, r, torch.rand(H, K), torch.zeros(B, H, K, K))),
+        readout_expected=2.0 * B * S * H * K * K)
+    return out
+
+
+def _live_cell(kind: str, batch: int, seq: int, prequant: bool,
+               card: str) -> dict:
+    """``launch.steps.build_cell`` of SmolLM-360M W1A8 (one device, no
+    shardings): its step counted on meta, then run on the card on
+    arguments drawn from DRY_SEED (params by ``init_lm``, prequantized for
+    ``prequant``; tokens from numpy), DRY_RUNS times timed (synchronized),
+    then once under the step counter, whose flops must equal meta's."""
+    import dataclasses
+
+    from repro_torch.configs import SINGLE, ShapeCell, get_config
+    from repro_torch.core.quant import W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import prequantize_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import trainable
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), quant=W1A8)
+    cell = ShapeCell(f"live_{kind}", kind, seq, batch)
+    built = steps.build_cell(cfg, cell, SINGLE, None,
+                             qmode="train" if kind == "train" else "serve",
+                             prequant=prequant)
+    t0 = time.perf_counter()
+    with ha.StepCounter() as meta:
+        built["fn"](*built["args"])
+    meta_s = time.perf_counter() - t0
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(DRY_SEED),
+                       cfg, SINGLE)
+    if prequant:
+        params = prequantize_params(params, cfg)
+    toks = torch.from_numpy(np.random.RandomState(DRY_SEED).randint(
+        0, cfg.vocab, (batch, seq)).astype(np.int32)).cuda()
+    if kind == "train":
+        params = trainable(params)
+        args = (params, opt.init_opt_state(params, opt.OptConfig()),
+                dict(tokens=toks, labels=torch.roll(toks, -1, dims=1)))
+    else:
+        args = (params, dict(tokens=toks))
+    shapes = [(tuple(t.shape), t.dtype) for t in ha.tree_tensors(args)]
+    check(shapes == [(tuple(t.shape), t.dtype)
+                     for t in ha.tree_tensors(built["args"])],
+          f"DRYRUN live {kind}: the card's arguments are not the cell's")
+    want = {k: 0 for k in _lib.LAUNCHES}
+    if kind == "prefill":
+        want["attn_flash"] = cfg.n_blocks_of("attn")
+    ms = []
+    for _ in range(DRY_RUNS):
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = built["fn"](*args)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        check(dict(_lib.LAUNCHES) == want, f"DRYRUN live {kind}: launches "
+              f"{dict(_lib.LAUNCHES)} != {want}")
+        if kind == "train":
+            check(bool(torch.isfinite(out[2]["loss"])),
+                  f"DRYRUN live train: loss {out[2]['loss']}")
+        else:
+            check(tuple(out[0].shape) == (batch, cfg.padded_vocab)
+                  and bool(torch.isfinite(out[0]).all()),
+                  f"DRYRUN live prefill: logits {tuple(out[0].shape)}")
+        del out
+    with ha.StepCounter() as on_card:
+        built["fn"](*args)
+        torch.cuda.synchronize()
+    check(on_card.flops == meta.flops, f"DRYRUN live {kind}: the card "
+          f"counts {on_card.flops} flops, meta {meta.flops}")
+    check(on_card.kernel_flops == meta.kernel_flops,
+          f"DRYRUN live {kind}: kernel flops {on_card.kernel_flops} vs "
+          f"{meta.kernel_flops}")
+    med = sorted(ms)[len(ms) // 2]
+    rl = ha.Roofline(hlo_flops=on_card.flops,
+                     hlo_bytes=on_card.bytes_accessed, collective_bytes=0.0,
+                     chips=1, model_flops=ha.model_flops_estimate(cfg, cell))
+    del args, params
+    torch.cuda.empty_cache()
+    return dict(kind=kind, batch=batch, seq=seq, prequant=prequant,
+                card=card, ms=ms, median_ms=med, flops=on_card.flops,
+                meta_flops=meta.flops, kernel_flops=on_card.kernel_flops,
+                meta_count_s=meta_s, launches={k: v for k, v in want.items()
+                                               if v},
+                roofline=rl.to_dict(), measured_s=med / 1e3,
+                roofline_bound_over_measured=rl.bound_s / (med / 1e3),
+                model_flops_share_of_bf16_peak=rl.model_flops / (
+                    med / 1e3 * ha.PEAK_FLOPS_BF16))
+
+
+def dryrun_phase(card: str) -> dict:
+    """The dry-run tooling: build_cell's DRY_LIVE cells on the card
+    (``_live_cell``, alone on the host), then DRY_CELLS through ``python
+    -m repro_torch.launch.dryrun`` and the sweep over DRY_SWEEP (twice,
+    the second skipping the cell), each in a CPU-only interpreter, the
+    cells and the sweep's first run started at once.  One ``DRYRUN``
+    line."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    live = [_live_cell(kind, b, s, pq, card) for kind, b, s, pq in DRY_LIVE]
+    for r in live:
+        print(f"DRYRUN live {r['kind']}: {r['median_ms']:.1f} ms (runs "
+              f"{', '.join(f'{m:.1f}' for m in r['ms'])}), flops "
+              f"{r['flops']:.4e} = meta's, model flops share of the bf16 "
+              f"peak {r['model_flops_share_of_bf16_peak']:.4%} ({card})",
+              flush=True)
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    sweep_dir = os.path.join(out_dir, "sweep")
+    sweep_args = ("--only", DRY_SWEEP, "--out", sweep_dir,
+                  "--timeout", str(DRY_TIMEOUT_S))
+    t0 = time.perf_counter()
+    procs = {}
+    for arch, shape, extra in DRY_CELLS:
+        path = os.path.join(out_dir, f"{arch}__{shape}.json")
+        procs[arch, shape] = (path, extra, _dry_cli(
+            "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+            *extra, "--out", path))
+    sweep1 = _dry_cli("repro_torch.launch.sweep", *sweep_args)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    facts = subprocess.Popen([sys.executable, "-c", DRY_FACTS, ROOT],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    cells = {}
+    for (arch, shape), (path, extra, proc) in procs.items():
+        _, secs = _dry_wait(f"{arch} {shape}", proc, t0)
+        res = _dry_cell(path, f"{arch} {shape}",
+                        512 if "--multi-pod" in extra else 256)
+        cells[f"{arch}:{shape}"] = dict(
+            mesh=res["mesh"], chips=res["chips"], lower_s=res["lower_s"],
+            process_s=secs, flops=res["flops"],
+            bytes_accessed=res["bytes_accessed"], memory=res["memory"],
+            collectives=res["collectives"]["counts"],
+            collective_bytes=res["collectives"]["total_bytes"],
+            roofline=res["roofline"])
+    log1, s1 = _dry_wait("sweep (first run)", sweep1, t0)
+    t1 = time.perf_counter()
+    log2, s2 = _dry_wait("sweep (second run)",
+                         _dry_cli("repro_torch.launch.sweep", *sweep_args),
+                         t1)
+    arch, shape = DRY_SWEEP.split(":")
+    started = f"[sweep] {arch} x {shape} (16x16) ..."
+    check(started in log1 and "complete: 1/1 OK" in log1,
+          f"DRYRUN sweep: the first run did not run the cell: {log1[-800:]}")
+    check(started not in log2 and "complete: 1/1 OK" in log2,
+          f"DRYRUN sweep: the second run did not skip the cell: "
+          f"{log2[-800:]}")
+    res = _dry_cell(os.path.join(sweep_dir, f"{arch}__{shape}__16x16.json"),
+                    "sweep", 256)
+    cells[f"sweep {DRY_SWEEP}"] = dict(
+        flops=res["flops"], collectives=res["collectives"]["counts"],
+        first_run_s=s1, second_run_s=s2, second_run_skipped=True)
+    log, _ = _dry_wait("counter facts", facts, t0)
+    facts = json.loads(log.strip().splitlines()[-1])
+    check(facts["int_mm"]["step_counter"] == facts["int_mm"]["expected"]
+          and facts["wkv_scan"]["step_counter"]
+          == facts["wkv_scan"]["readout_expected"],
+          f"DRYRUN counter facts: {facts}")
+    report = dict(card=card, cells=cells, live=live, counter_facts=facts,
+                  seconds=time.perf_counter() - t_phase)
+    print("DRYRUN", json.dumps(report), flush=True)
+    return report
+
+
 def bucket_step_profile(params, cfg, layers, batch: int, prompt_len: int,
                         new: int) -> dict:
     """One bucket decode step (``batch`` rows at position ``prompt_len``,
@@ -4297,7 +4676,28 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
     return {"kernels": out}
 
 
+# the phases after the kernels', in the order a whole run takes them, each
+# with its line in the log; --phase NAME runs BUILD, the phases NAME reads
+# (PHASE_NEEDS) and NAME
+PHASES = (("cnn", "CNN MAIN PATH"), ("bitplane", "FAITHFUL/INT8 MAIN PATH"),
+          ("lm", "LM MAIN PATH"), ("resilience", "RESILIENCE PHASE"),
+          ("plan", "PLAN PHASE"), ("analysis", "ANALYSIS PHASE"),
+          ("families", "FAMILIES PHASE"), ("modalities", "MODALITIES PHASE"),
+          ("fleet", "FLEET PHASE"), ("train", "TRAIN PHASE"),
+          ("dist", "DIST PHASE"), ("dryrun", "DRYRUN PHASE"))
+PHASE_NEEDS = {"plan": ("lm",), "analysis": ("lm", "plan")}
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases")
+    ap.add_argument("--phase", choices=[n for n, _ in PHASES],
+                    help="run BUILD and this phase alone (and the phases "
+                         "it reads)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -4317,64 +4717,53 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"PTXAS {name}: {line.strip()}")
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    t0 = time.perf_counter()
-    summary = kernel_phase(flush)
-    t1 = time.perf_counter()
-    summary.update(bitplane_kernel_phase(flush))
-    t2 = time.perf_counter()
-    summary.update(lm_kernel_phase(flush))
-    print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, bit-plane {t2 - t1:.1f} s, "
-          f"lm {time.perf_counter() - t2:.1f} s", flush=True)
-    del flush
-    if "--kernels-only" in sys.argv[1:]:
-        print("KERNELS-ONLY done", flush=True)
-        return 0
+    if args.phase is None:
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        t0 = time.perf_counter()
+        summary = kernel_phase(flush)
+        t1 = time.perf_counter()
+        summary.update(bitplane_kernel_phase(flush))
+        t2 = time.perf_counter()
+        summary.update(lm_kernel_phase(flush))
+        print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, bit-plane {t2 - t1:.1f} s, "
+              f"lm {time.perf_counter() - t2:.1f} s", flush=True)
+        del flush
+        if args.kernels_only:
+            print("KERNELS-ONLY done", flush=True)
+            return 0
     global PROOFS
     PROOFS = _Proofs().install()
-    t0 = time.perf_counter()
-    report = main_path(card)
-    launches = {k: report["launches"][k] for k in ("fused_qgemm",
-                                                    "conv_implicit")}
-    print(f"CNN MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    bit = bitplane_main_path(card)
-    launches.update({k: bit["launches"][k] for k in ("quantize_pack",
-                                                      "bitgemm_packed",
-                                                      "int8_matmul")})
-    print(f"FAITHFUL/INT8 MAIN PATH {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    lm = lm_main_path(card)
-    launches.update({k: lm["launches"][k] for k in ("attn_flash",
-                                                     "attn_paged")})
-    print(f"LM MAIN PATH {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    resilience_phase(card)
-    print(f"RESILIENCE PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    plan_phase(card, lm)
-    print(f"PLAN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    analysis_phase(card)
-    print(f"ANALYSIS PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    fam = families_phase(card)
-    print(f"FAMILIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    mod = modalities_phase(card)
-    print(f"MODALITIES PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    fleet_phase(card)
-    print(f"FLEET PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    train = train_phase(card)
-    print(f"TRAIN PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    dist_phase(card)
-    print(f"DIST PHASE {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps(kernels_line(summary, launches, dict(
-        archs=fam["archs"] + mod["archs"]), train["handoff"]["launches"])))
+    done: dict = {}
+    run = {"cnn": lambda: main_path(card),
+           "bitplane": lambda: bitplane_main_path(card),
+           "lm": lambda: lm_main_path(card),
+           "resilience": lambda: resilience_phase(card),
+           "plan": lambda: plan_phase(card, done["lm"]),
+           "analysis": lambda: analysis_phase(card),
+           "families": lambda: families_phase(card),
+           "modalities": lambda: modalities_phase(card),
+           "fleet": lambda: fleet_phase(card),
+           "train": lambda: train_phase(card),
+           "dist": lambda: dist_phase(card),
+           "dryrun": lambda: dryrun_phase(card)}
+    todo = ([n for n, _ in PHASES] if args.phase is None
+            else [*PHASE_NEEDS.get(args.phase, ()), args.phase])
+    for name, label in PHASES:
+        if name in todo:
+            t0 = time.perf_counter()
+            done[name] = run[name]()
+            print(f"{label} {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.phase is None:
+        launches = {k: done["cnn"]["launches"][k]
+                    for k in ("fused_qgemm", "conv_implicit")}
+        launches.update({k: done["bitplane"]["launches"][k]
+                         for k in ("quantize_pack", "bitgemm_packed",
+                                   "int8_matmul")})
+        launches.update({k: done["lm"]["launches"][k]
+                         for k in ("attn_flash", "attn_paged")})
+        print(json.dumps(kernels_line(summary, launches, dict(
+            archs=done["families"]["archs"] + done["modalities"]["archs"]),
+            done["train"]["handoff"]["launches"])))
     print(f"TOTAL {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

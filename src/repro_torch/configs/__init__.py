@@ -20,4 +20,11 @@ def get_config(arch_id: str):
     return mod.ARCH
 
 
-from .base import SINGLE, ArchConfig, ShardPlan, make_plan  # noqa: E402,F401
+def all_configs() -> dict:
+    """``{arch id: ArchConfig}`` for every architecture, in ``ARCH_IDS``
+    order."""
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+from .base import (SHAPES, SINGLE, ArchConfig, ShapeCell,  # noqa: E402,F401
+                   ShardPlan, make_plan)

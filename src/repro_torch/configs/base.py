@@ -7,11 +7,23 @@ patch embeddings among them), the derived sizes (``hd``,
 (reducing every field as the reference's does), the reference's shape cells
 (``ShapeCell``, ``SHAPES``: the abstract batches of ``launch.steps``),
 the training toggle the port reads (``remat``: recompute each
-block's activations in the backward), and the sharding plan of a device
-mesh (``ShardPlan``, ``make_plan``: logical axes to mesh axes, read by
-``distributed.sharding``).  The reference's analysis and
-hill-climb toggles (``ce_where_mask`` among them) and ``skip_shapes`` are
-left out: nothing in the port reads them.
+block's activations in the backward), the analysis toggles the dry run
+sets (``launch.dryrun``; the reference's defaults), each config's
+``skip_shapes`` and ``shapes()``, and the sharding plan of a device mesh
+(``ShardPlan``, ``make_plan``: logical axes to mesh axes, read by
+``distributed.sharding``).
+
+Of the toggles, ``rglru_assoc`` (RG-LRU's log-step scan),
+``full_attn_analysis`` (materialized attention logits), ``act_scale``
+(a static activation scale for the prequantized serve ``qdense``) and
+``constrain_acts`` (the residual stream batch-split on a mesh) change
+what runs.  ``scan_layers`` and ``remat_prevent_cse`` are accepted and
+have no effect: the layers always run as a Python loop (the reference
+scans them when ``scan_layers``), and eager PyTorch has no common
+subexpression elimination for ``remat_prevent_cse`` to stop.  The
+reference's hill-climb toggles ``bf16_logits`` and ``ce_where_mask`` are
+left out: the dry run sets neither, and the port keeps the reference's
+default forms of both.
 """
 from __future__ import annotations
 
@@ -88,6 +100,17 @@ class ArchConfig:
     banded_attn: bool = False
     # training
     remat: bool = True
+    # analysis/runtime toggles (launch.dryrun sets the first three; see
+    # the module docstring for the two without an effect here)
+    scan_layers: bool = True
+    full_attn_analysis: bool = False
+    rglru_assoc: bool = False
+    remat_prevent_cse: bool = False
+    act_scale: float = 0.0            # >0: static activation scale of the
+                                      # prequantized serve qdense
+    constrain_acts: bool = False      # residual stream batch-split on a mesh
+    # which shape cells apply
+    skip_shapes: Tuple[str, ...] = ("long_500k",)
 
     @property
     def hd(self) -> int:
@@ -105,6 +128,13 @@ class ArchConfig:
 
     def n_blocks_of(self, kind: str) -> int:
         return sum(1 for b in self.blocks_pattern if b == kind)
+
+    def shapes(self):
+        """The shape cells this config runs (``SHAPES`` less
+        ``skip_shapes``), in ``SHAPES`` order."""
+        for name, cell in SHAPES.items():
+            if name not in self.skip_shapes:
+                yield cell
 
     def smoke(self, **overrides) -> "ArchConfig":
         """Reduced same-family config for CPU tests (the reference's smoke

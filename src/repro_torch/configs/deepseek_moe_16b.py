@@ -9,4 +9,5 @@ ARCH = ArchConfig(
     d_ff=1408, vocab=102400, head_dim=128,
     n_experts=64, top_k=6, n_shared_experts=2, expert_d_ff=1408,
     pattern=("moe",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

@@ -10,4 +10,5 @@ ARCH = ArchConfig(
     d_ff=512, vocab=49155, head_dim=64, tie_embeddings=True,
     n_experts=40, top_k=8, n_shared_experts=0, expert_d_ff=512,
     pattern=("moe",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

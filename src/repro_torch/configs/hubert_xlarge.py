@@ -11,4 +11,5 @@ ARCH = ArchConfig(
     n_layers=48, d_model=1280, n_heads=16, n_kv_heads=16,
     d_ff=5120, vocab=504, causal=False, frame_input=True, frame_dim=512,
     pattern=("attn",), act="gelu", rope_theta=10_000.0,
+    skip_shapes=("decode_32k", "long_500k"),
 )

@@ -12,4 +12,5 @@ ARCH = ArchConfig(
     d_ff=16384, vocab=92553, head_dim=128,
     n_patches=256, vit_dim=1024,
     pattern=("attn",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

@@ -6,4 +6,5 @@ ARCH = ArchConfig(
     n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32,
     d_ff=8192, vocab=32064, rope_theta=10_000.0,
     pattern=("attn",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

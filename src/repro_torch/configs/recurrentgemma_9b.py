@@ -10,4 +10,5 @@ ARCH = ArchConfig(
     d_ff=12288, vocab=256000, head_dim=256, window=2048,
     lru_width=4096, conv_width=4,
     pattern=("rec", "rec", "attn_local"), act="gelu",
+    skip_shapes=(),
 )

@@ -8,4 +8,5 @@ ARCH = ArchConfig(
     n_layers=24, d_model=2048, n_heads=32, n_kv_heads=0,
     d_ff=7168, vocab=65536, rwkv_head_dim=64,
     pattern=("rwkv",),
+    skip_shapes=(),
 )

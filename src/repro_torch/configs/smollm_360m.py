@@ -10,4 +10,5 @@ ARCH = ArchConfig(
     n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
     d_ff=2560, vocab=49152, head_dim=64, tie_embeddings=True,
     pattern=("attn",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

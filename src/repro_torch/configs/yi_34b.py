@@ -10,4 +10,5 @@ ARCH = ArchConfig(
     n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8,
     d_ff=20480, vocab=64000, head_dim=128, rope_theta=5_000_000.0,
     pattern=("attn",), act="swiglu",
+    skip_shapes=("long_500k",),
 )

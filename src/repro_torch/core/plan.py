@@ -516,7 +516,7 @@ def _plan_lm_attention(params, cfg, quant: QuantConfig, cost_target,
     ``page_size`` one more for the paged decode step (10-tuple key).
     Appends an ``op="attn"`` row per verdict to ``layers``; returns the
     attention table."""
-    from repro_torch.models.layers import attn_quantized
+    from repro_torch.models.layers import analysis_attn_engine, attn_quantized
 
     backend = cost_target.name
     attn_table: dict = {}
@@ -533,7 +533,7 @@ def _plan_lm_attention(params, cfg, quant: QuantConfig, cost_target,
             head_dim=cfg.hd, causal=bool(cfg.causal), window=window,
             batch=batch_hints[0], quantized=attn_quantized(quant, "serve"),
             banded_ok=bool(getattr(cfg, "banded_attn", False)))
-        eng = cost_target.select_attn_engine(attn)
+        eng = analysis_attn_engine(cfg, cost_target.select_attn_engine(attn))
         attn_table[ops.attn_plan_key(attn, backend)] = eng
         layers.append(_attn_row(len(layers), f"attn[{kind}]", attn, eng, cfg,
                                 quant, batch_hints, cost_target))

@@ -166,12 +166,14 @@ def distribute_tree(tree, shardings, mesh):
     """Place every leaf of ``tree`` (full tensors, the same on every rank)
     as a DTensor with its placements from ``shardings`` (the tree of
     placement tuples :func:`tree_shardings` or :func:`batch_shardings`
-    gives).  Each rank keeps its own slice, on the mesh's device."""
+    gives).  Each rank keeps its own slice, on the mesh's device; a meta
+    tensor (the dry run's abstract arguments) stays on the meta device."""
     from torch.distributed.tensor import distribute_tensor
 
     dev = local_device(mesh)
     return _zip_map(lambda x, pl: distribute_tensor(
-        x.detach().to(dev), mesh, list(pl)), tree, shardings)
+        x.detach() if x.is_meta else x.detach().to(dev), mesh, list(pl)),
+        tree, shardings)
 
 
 def local_device(mesh) -> torch.device:

@@ -9,12 +9,17 @@ library's file name carries a hash of its source, the shared headers
 build.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, keyed by
-kernel name (:data:`KERNELS` names each kernel's source).
-:func:`split_steps` is the split-K rule the kernels' plans share.
+kernel name (:data:`KERNELS` names each kernel's source), and runs its
+plain version on the tensors of :data:`PLAIN_DEVICES` (the CPU, and the
+meta device of the dry run's abstract steps).  :func:`counted` makes a
+wrapper report its call's work to an active step counter
+(``launch.hlo_analysis.StepCounter``).  :func:`split_steps` is the split-K
+rule the kernels' plans share.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,6 +43,44 @@ KERNELS = {"fused_qgemm": "fused_qgemm", "conv_implicit": "conv_implicit",
            "quantize_pack": "quantpack", "bitgemm_packed": "bitgemm",
            "int8_matmul": "int8_matmul"}
 LAUNCHES = {name: 0 for name in KERNELS}
+# devices whose tensors a wrapper runs its plain version on
+PLAIN_DEVICES = ("cpu", "meta")
+# the active step counter (launch.hlo_analysis.StepCounter), or None
+COUNTER: list = [None]
+
+
+def counted(name: str, flops):
+    """Decorator of kernel ``name``'s wrapper: under an active step
+    counter, the call counts ``flops(*args, **kwargs)`` (the work of the
+    kernel's plain version, from the arguments' shapes) and the bytes of
+    its tensor arguments and outputs, and the counter counts none of the
+    operations inside (the plain version's, or the kernel's ``empty``),
+    so a step counts the same on the card as on the CPU or meta.  Without
+    a counter the wrapper runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            counter = COUNTER[0]
+            if counter is None:
+                return fn(*args, **kwargs)
+            with counter.kernel(name, flops(*args, **kwargs), args):
+                out = fn(*args, **kwargs)
+            counter.kernel_output(out)
+            return out
+        return call
+    return wrap
+
+
+def gemm_flops(a, b, *args, **kwargs) -> float:
+    """2·M·N·K of an (M, K) x (K, N) product (the GEMM wrappers' work)."""
+    (m, k), n = local_shape(a), local_shape(b)[1]
+    return 2.0 * m * n * k
+
+
+def local_shape(t) -> tuple:
+    """The shape of this rank's part of ``t`` (a DTensor's local shard),
+    which a step counter counts."""
+    return tuple(getattr(t, "_local_tensor", t).shape)
 
 # csrc/u8_mma.cuh's split-K constants: K is split until the grid holds
 # about BLOCKS_PER_SM blocks on each of SMS SMs, at most MAX_SPLIT ways

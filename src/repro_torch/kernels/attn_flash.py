@@ -140,6 +140,31 @@ def _check_exact(hd: int, q_bits: int, k_bits: int, what: str) -> None:
 # Flash attention: plain version
 # ---------------------------------------------------------------------------
 
+def _kv_blocks(i: int, bq: int, bk: int, nk: int, causal: bool,
+               window: Optional[int]) -> tuple[int, int]:
+    """The first and last kv block that query block ``i`` reaches."""
+    jhi = min(((i + 1) * bq - 1) // bk, nk - 1) if causal else nk - 1
+    jlo = max((i * bq - (window - 1)) // bk, 0) if window else 0
+    return jlo, jhi
+
+
+def _flash_flops(q, k, v, *, causal: bool = True,
+                 window: Optional[int] = None, block_q: int = 512,
+                 block_kv: int = 512, **_) -> float:
+    """QKᵀ plus P·V over the (query block, kv block) pairs
+    :func:`attn_flash_plain` computes: 4·B·H·hd a pair of rows."""
+    B, Sq, H, hd = _lib.local_shape(q)
+    Skv = _lib.local_shape(k)[1]
+    bq, bk = min(block_q, Sq), min(block_kv, Skv)
+    nk = -(-Skv // bk)
+    pairs = 0
+    for i in range(-(-Sq // bq)):
+        rows = min((i + 1) * bq, Sq) - i * bq
+        jlo, jhi = _kv_blocks(i, bq, bk, nk, causal, window)
+        pairs += rows * (min((jhi + 1) * bk, Skv) - jlo * bk)
+    return 4.0 * B * H * hd * pairs
+
+
 def attn_flash_plain(q, k, v, *, causal: bool = True,
                      window: Optional[int] = None, q_bits: int = 8,
                      k_bits: int = 8, block_q: int = 512,
@@ -164,8 +189,7 @@ def attn_flash_plain(q, k, v, *, causal: bool = True,
     out = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     for i in range(-(-Sq // bq)):
         q0, q1 = i * bq, min((i + 1) * bq, Sq)
-        jhi = min(((i + 1) * bq - 1) // bk, nk - 1) if causal else nk - 1
-        jlo = max((i * bq - (window - 1)) // bk, 0) if window else 0
+        jlo, jhi = _kv_blocks(i, bq, bk, nk, causal, window)
         iq = torch.arange(q0, q1, device=q.device)
         m_run = torch.full((B, H, q1 - q0), NEG_INF, device=q.device)
         l_run = torch.zeros((B, H, q1 - q0), device=q.device)
@@ -262,13 +286,14 @@ def _flash_cuda(q, k, v, causal, window, q_bits, k_bits) -> torch.Tensor:
     return out
 
 
+@_lib.counted(FLASH, _flash_flops)
 def attn_flash(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                q_bits: int = 8, k_bits: int = 8,
                reference: bool = False) -> torch.Tensor:
     """Quantized flash attention (the ``flash`` engine entry).  Shapes as
     :func:`attn_flash_plain`; a CUDA tensor launches ``csrc/attn_flash.cu``
     or raises."""
-    if reference or q.device.type == "cpu":
+    if reference or q.device.type in _lib.PLAIN_DEVICES:
         return attn_flash_plain(q, k, v, causal=causal, window=window,
                                 q_bits=q_bits, k_bits=k_bits)
     if q.device.type != "cuda":
@@ -429,6 +454,15 @@ def _paged_cuda(q, pool_k, pool_v, ppos, table, q_pos, causal, window, bits,
     return out
 
 
+def _paged_flops(q, pool_k, pool_v, ppos, table, q_pos, **_) -> float:
+    """QKᵀ plus P·V against every slot of each row's page table (what
+    :func:`attn_paged_plain` gathers): 4·B·S·H·hd·P·ps."""
+    B, S, H, hd = _lib.local_shape(q)
+    return 4.0 * B * S * H * hd * _lib.local_shape(table)[1] * \
+        _lib.local_shape(pool_k)[1]
+
+
+@_lib.counted(PAGED, _paged_flops)
 def attn_paged(q, pool_k, pool_v, ppos, table, q_pos, *,
                causal: bool = True, window: Optional[int] = None,
                quantized: bool = False, bits: int = 8,
@@ -439,7 +473,7 @@ def attn_paged(q, pool_k, pool_v, ppos, table, q_pos, *,
     (fp) call is the gather realization on every device, as in the
     reference, whose Pallas kernel is the integer-levels path only."""
     n_q = n_q_heads or q.shape[2]
-    if reference or not quantized or q.device.type == "cpu":
+    if reference or not quantized or q.device.type in _lib.PLAIN_DEVICES:
         return attn_paged_plain(q, pool_k, pool_v, ppos, table, q_pos,
                                 causal=causal, window=window,
                                 quantized=quantized, bits=bits, n_q_heads=n_q)

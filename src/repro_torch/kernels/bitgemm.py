@@ -103,12 +103,20 @@ def _check(a: torch.Tensor, w: torch.Tensor, a_bits: int, w_bits: int) -> None:
                          f"w_bits={w_bits}")
 
 
+def _bit_flops(a_planes, w_planes, *, a_bits: int, w_bits: int) -> float:
+    """2·M·N·K bit operations for each of the a_bits·w_bits plane pairs."""
+    _, m, kw = _lib.local_shape(a_planes)
+    n = _lib.local_shape(w_planes)[1]
+    return 2.0 * m * n * LANE * kw * a_bits * w_bits
+
+
+@_lib.counted(NAME, _bit_flops)
 def bitgemm_packed(a_planes: torch.Tensor, w_planes: torch.Tensor, *,
                    a_bits: int, w_bits: int) -> torch.Tensor:
     """(a_bits, M, Kw) and (w_bits, N, Kw) int32 words -> (M, N) int32
     ``sum_mn 2^(m+n) popcount(A_m & W_n)``."""
     _check(a_planes, w_planes, a_bits, w_bits)
-    if a_planes.device.type == "cpu":
+    if a_planes.device.type in _lib.PLAIN_DEVICES:
         return bitgemm_packed_plain(a_planes, w_planes, a_bits=a_bits,
                                     w_bits=w_bits)
     if a_planes.device.type != "cuda":

@@ -85,12 +85,13 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"K={a.shape[1]}")
 
 
+@_lib.counted(NAME, _lib.gemm_flops)
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, any shape and any base
     alignment (the kernel stages rows cp.async cannot take through its
     masked path)."""
     _check(a, b)
-    if a.device.type == "cpu":
+    if a.device.type in _lib.PLAIN_DEVICES:
         return int8_matmul_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {a.device}")

@@ -116,13 +116,23 @@ def _launcher():
     return _lib.launcher(NAME, [p, p, p] + [i] * 16 + [f, f, p])
 
 
+def _conv_flops(x_lv, w_lv, s_w, z_w, *, kh: int, kw: int, stride: int = 1,
+                padding: str = "SAME", **_) -> float:
+    """2·M·N·K of the conv's GEMM view: M = B·OH·OW, K = kh·kw·Cin."""
+    b, h, w, _ = _lib.local_shape(x_lv)
+    oh, ow = _out_hw(h, w, kh, kw, stride, padding)
+    k, cout = _lib.local_shape(w_lv)
+    return 2.0 * b * oh * ow * cout * k
+
+
+@_lib.counted(NAME, _conv_flops)
 def conv_implicit(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                   kh: int, kw: int, stride: int = 1, padding: str = "SAME",
                   a_bits: int, w_bits: int) -> torch.Tensor:
     """(B,H,W,Cin) uint8 levels (*) (kh*kw*Cin, Cout) uint8 weight levels
     -> (B,OH,OW,Cout) float32 ``s*acc - t*rowsum``."""
     _check(x_lv, w_lv, kh, kw, stride, padding, a_bits, w_bits)
-    if x_lv.device.type == "cpu":
+    if x_lv.device.type in _lib.PLAIN_DEVICES:
         return conv_implicit_plain(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw,
                                    stride=stride, padding=padding,
                                    a_bits=a_bits, w_bits=w_bits)

@@ -99,13 +99,14 @@ def _launcher():
     return _lib.launcher(NAME, [p, p, p, i, i, i, i, i, f, f, p])
 
 
+@_lib.counted(NAME, _lib.gemm_flops)
 def fused_qgemm(a: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                 a_bits: int, w_bits: int,
                 a_is_levels: bool = False) -> torch.Tensor:
     """(M, K) float activations or uint8 levels x (K, N) uint8 weight
     levels -> (M, N) float32 ``s*acc - t*rowsum``."""
     _check(a, w_lv, a_bits, w_bits, a_is_levels)
-    if a.device.type == "cpu":
+    if a.device.type in _lib.PLAIN_DEVICES:
         return fused_qgemm_plain(a, w_lv, s_w, z_w, a_bits=a_bits,
                                  w_bits=w_bits, a_is_levels=a_is_levels)
     if a.device.type != "cuda":

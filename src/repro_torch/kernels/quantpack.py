@@ -43,6 +43,7 @@ def _check(a: torch.Tensor, bits: int) -> None:
         raise ValueError(f"quantize_pack: bits must be 1..8, got {bits}")
 
 
+@_lib.counted(NAME, lambda a, bits: 0.0)   # elementwise: no GEMM flops
 def quantize_pack(a: torch.Tensor, bits: int):
     """(M, K) float32 activations or uint8 levels -> ``(levels uint8 (M,
     K), planes int32 (bits, M, ceil(K/32)))``, planes packed LSB first
@@ -50,7 +51,7 @@ def quantize_pack(a: torch.Tensor, bits: int):
     the device: one ``torch.empty`` an output and one launch; any
     contiguous input is taken, at any offset into its storage."""
     _check(a, bits)
-    if a.device.type == "cpu":
+    if a.device.type in _lib.PLAIN_DEVICES:
         return quantize_pack_plain(a, bits)
     if a.device.type != "cuda":
         raise ValueError(f"quantize_pack: unsupported device {a.device}")

@@ -40,6 +40,16 @@ from repro_torch.core.quant import (QuantConfig, fake_quant_act_signed,
 
 NEG_INF = -1e30
 PREQUANT_KEYS = {"wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out"}
+# the static activation scale of the prequantized serve qdense, as the
+# reference keeps it: set by launch.dryrun from ``cfg.act_scale``;
+# None = dynamic absmax.  A list so closures observe a change.
+_STATIC_ACT_SCALE: list = [None]
+
+
+def set_static_act_scale(v) -> None:
+    """Install ``v`` (> 0) as the prequantized serve ``qdense``'s
+    activation scale; 0 or None restores dynamic absmax."""
+    _STATIC_ACT_SCALE[0] = v if v else None
 
 
 # ---------------------------------------------------------------------------
@@ -49,17 +59,20 @@ PREQUANT_KEYS = {"wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out"}
 def qdense(x: torch.Tensor, w, quant: QuantConfig, *,
            role: str = "mid", mode: str = "train") -> torch.Tensor:
     """Dense layer.  ``w`` prequantized (``{"q": (K, N) int8 levels,
-    "s": 0-d, "z": 0-d}``) runs the signed level GEMM with the config's
-    activation-scale mode, whatever ``mode``.  A float ``w`` is a plain
-    matmul on fp configs and on first/last layers kept fp; otherwise
-    ``mode="train"`` is the fake-quant product (per-tensor signed
-    activation levels times the DoReFa weight, both in their float
+    "s": 0-d, "z": 0-d}``) runs the signed level GEMM, whatever ``mode``,
+    with the static activation scale of :func:`set_static_act_scale` if
+    one is set, else the config's activation-scale mode.  A float ``w``
+    is a plain matmul on fp configs and on first/last layers kept fp;
+    otherwise ``mode="train"`` is the fake-quant product (per-tensor
+    signed activation levels times the DoReFa weight, both in their float
     straight-through form ``x + stop_gradient(q - x)``, so differentiable
     with the reference's gradients), and ``mode="serve"`` quantizes
     the weight here and runs the signed level GEMM
     (:func:`~repro_torch.core.and_accum.quant_dense_forward_signed`)."""
     if isinstance(w, dict):
-        a_scale = "row" if quant.act_scale_mode == "row" else None
+        a_scale = _STATIC_ACT_SCALE[0]
+        if a_scale is None and quant.act_scale_mode == "row":
+            a_scale = "row"
         return quant_dense_forward_signed_pre(
             x, w["q"], w["s"], w["z"], quant.a_bits, quant.w_bits,
             a_scale=a_scale,
@@ -110,6 +123,20 @@ def prequantize_params(params, cfg):
                 new[sub] = sv
         blocks[kind] = new
     out["blocks"] = blocks
+    return out
+
+
+def prequantize_axes(axes, cfg) -> dict:
+    """The logical axes of :func:`prequantize_params`'s tree: each
+    prequantized leaf's axes on its levels ``q``, ``("layers",)`` on its
+    scales ``s`` and ``z``."""
+    out = dict(axes)
+    out["blocks"] = {
+        kind: {sub: ({k: ({"q": v, "s": ("layers",), "z": ("layers",)}
+                          if k in PREQUANT_KEYS else v)
+                      for k, v in sv.items()} if isinstance(sv, dict) else sv)
+               for sub, sv in tree.items()}
+        for kind, tree in axes["blocks"].items()}
     return out
 
 
@@ -324,13 +351,25 @@ def attn_quantized(quant: QuantConfig, qmode: str) -> bool:
 def resolve_attn_engine(cfg, *, seq_q: int, seq_kv: int, heads: int,
                         causal: bool, window: Optional[int],
                         qmode: str = "serve") -> str:
+    """The attention engine of one static geometry: the dispatcher's pick
+    (an installed plan table, then the target's decision procedure),
+    through :func:`analysis_attn_engine`."""
     from repro_torch.kernels.ops import AttnShape, select_attn_engine
 
-    return select_attn_engine(AttnShape(
+    return analysis_attn_engine(cfg, select_attn_engine(AttnShape(
         seq_q=seq_q, seq_kv=seq_kv, heads=heads, head_dim=cfg.hd,
         causal=bool(causal), window=window,
         quantized=attn_quantized(cfg.quant, qmode),
-        banded_ok=bool(cfg.banded_attn)))
+        banded_ok=bool(cfg.banded_attn))))
+
+
+def analysis_attn_engine(cfg, engine: str) -> str:
+    """``cfg.full_attn_analysis`` pins the materialized logits (``full``)
+    where the pick was ``chunked`` or ``flash``, leaving the banded
+    window realization alone (the reference's analysis contract)."""
+    if cfg.full_attn_analysis and engine in ("chunked", "flash"):
+        return "full"
+    return engine
 
 
 def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
@@ -391,7 +430,11 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
             cache_k[:, at:at + 1] = k_roped
             cache_v[:, at:at + 1] = v
             cache_pos[:, at] = pos_offset
-            kv, vv, kv_pos = cache_k, cache_v, cache_pos[0]
+            # the positions whole on every rank of a mesh: the core runs on
+            # each rank's heads over every cache slot
+            from repro_torch.distributed.sharding import full_tree
+
+            kv, vv, kv_pos = cache_k, cache_v, full_tree(cache_pos[0])
             new_cache = (cache_k, cache_v, cache_pos)
         else:
             raise ValueError(f"unknown attention mode {mode!r} "
@@ -432,14 +475,12 @@ def attention_fwd(p, x, cfg, plan, *, mode: str, pos_offset=0,
         def expand(kv, vv):
             return expand_kv(kv, vv, cfg.n_heads, hp)
 
-        if mode == "train":
-            # a train step on a mesh runs the core on each rank's own batch
-            # rows and heads; plain tensors go straight through
-            from repro_torch.distributed.sharding import per_head
+        # a step on a mesh runs the core on each rank's own batch rows and
+        # heads (exact: attention is independent per row and head); plain
+        # tensors go straight through
+        from repro_torch.distributed.sharding import per_head
 
-            out = per_head(core, q, kv, vv, expand)
-        else:
-            out = core(q, *expand(kv, vv))
+        out = per_head(core, q, kv, vv, expand)
     hm = _head_mask(cfg, plan, out.dtype, out.device)
     if hm is not None:
         out = out * hm[None, None, :, None]

@@ -5,10 +5,11 @@ The in/out projections ``wx``, ``wy``, ``wo`` run through :func:`qdense`
 in its default train mode (the reference's serve path leaves these
 weights float: its prequantization does not reach them, so they take the
 fake-quant product); the gate products ``wr``/``wi`` and the recurrence
-are float, as in the reference.  The recurrence is the reference's
-sequential scan, a Python loop over positions in float32; the parallel
-``associative_scan`` form the reference keeps for its dry-run analysis is
-not ported.
+are float, as in the reference.  The recurrence runs in float32 in one
+of the reference's two forms: the sequential scan (:func:`_rglru_scan`, a
+Python loop over positions, the default) or, with ``cfg.rglru_assoc`` or
+``rec_block_fwd(use_assoc=True)``, the parallel form
+(:func:`_rglru_assoc`, ceil(log2 S) steps of whole-sequence tensor ops).
 """
 from __future__ import annotations
 
@@ -72,9 +73,31 @@ def _rglru_scan(xg, a, h0):
     return torch.stack(hs, dim=1), h
 
 
-def rec_block_fwd(p, x, cfg, plan, *, mode: str, state=None):
+def _rglru_assoc(xg, a, h0):
+    """The same recurrence in parallel form: ``h_t = a_t h_{t-1} + b_t``
+    composes associatively as ``(a, b) * (a', b') = (a a', a' b + b')``,
+    so with ``h0`` folded into ``b_0`` (as the reference's
+    ``associative_scan`` form does) a Hillis-Steele scan takes
+    ceil(log2 S) steps, each one whole-sequence multiply-add.  The
+    products associate in another order than the sequential loop's, so
+    the two agree to float32 rounding, not bit for bit."""
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * xg
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    S, d = xg.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        if 2 * d < S:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b, b[:, -1]
+
+
+def rec_block_fwd(p, x, cfg, plan, *, mode: str, state=None,
+                  use_assoc: bool = False):
     """x (B,S,d); state: dict(h (B,W) float32, conv (B,cw-1,W) float32)
-    or None (zeros).  Returns (out, new_state)."""
+    or None (zeros).  The recurrence takes :func:`_rglru_assoc` when
+    ``use_assoc`` or ``cfg.rglru_assoc``, else :func:`_rglru_scan`.
+    Returns (out, new_state)."""
     B, S, d = x.shape
     W = cfg.lru_width or d
     cw = cfg.conv_width
@@ -90,7 +113,8 @@ def rec_block_fwd(p, x, cfg, plan, *, mode: str, state=None):
     r = torch.sigmoid(xc @ p["wr"].to(xc.dtype)).float()
     i = torch.sigmoid(xc @ p["wi"].to(xc.dtype)).float()
     a = torch.exp(-RGLRU_C * softplus(p["lam"].float()) * r)
-    h_seq, h_last = _rglru_scan(i * xc.float(), a, state["h"])
+    scan = _rglru_assoc if (use_assoc or cfg.rglru_assoc) else _rglru_scan
+    h_seq, h_last = scan(i * xc.float(), a, state["h"])
     out = qdense(h_seq.to(x.dtype) * yb, p["wo"], cfg.quant)
     return out, dict(h=h_last, conv=conv_new.float())
 

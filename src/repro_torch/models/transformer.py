@@ -181,6 +181,25 @@ def init_cache(cfg, plan, batch: int, max_len: int, dtype=None,
     return cache
 
 
+def cache_axes(cfg, plan) -> dict:
+    """The logical axes of :func:`init_cache`'s tree, leaf for leaf (the
+    reference's ``cache_axes``)."""
+    del plan
+    ax: dict[str, Any] = {}
+    for kind in _kind_counts(cfg):
+        if kind in ATTN_KINDS:
+            kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+            ax[kind] = dict(k=kv, v=kv, pos=("layers", "batch", "cache_seq"))
+        elif kind == "rec":
+            ax[kind] = dict(h=("layers", "batch", "mlp"),
+                            conv=("layers", "batch", None, "mlp"))
+        elif kind == "rwkv":
+            ax[kind] = dict(tm_x=("layers", "batch", "embed"),
+                            cm_x=("layers", "batch", "embed"),
+                            s=("layers", "batch", "heads", None, None))
+    return ax
+
+
 def init_paged_cache(cfg, plan, num_slots: int, num_pages: int,
                      page_size: int, table_pages: int, dtype=None,
                      device=None) -> dict:
@@ -259,14 +278,14 @@ def _train_block(p, h, cfg, plan, qmode: str, rope_cs):
         window = cfg.window if kind == "attn_local" else None
         att, _ = attention_fwd(p["attn"], h, cfg, plan, mode="train",
                                qmode=qmode, window=window, rope_cs=rope_cs)
-        h = h + att
+        h = _constrain_batch(h + att, cfg, plan)
         if kind == "moe":
             y, aux = moe_fwd(p["moe"], h, cfg)
             return h + y, aux
         return h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode), aux
     if kind == "rec":
         out, _ = rglru.rec_block_fwd(p["rec"], h, cfg, plan, mode="train")
-        h = h + out
+        h = _constrain_batch(h + out, cfg, plan)
         return h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode), aux
     h, _ = rwkv6.rwkv_block_fwd(p, h, cfg, plan, mode="train")
     return h, aux
@@ -287,8 +306,35 @@ def _run_blocks_train(h, cfg, plan, layers, qmode: str):
                               use_reentrant=False)
         else:
             h, a = _train_block(p, h, cfg, plan, qmode, rope_cs)
+        h = _constrain_batch(h, cfg, plan)
         aux = aux + a
     return h, aux
+
+
+def _constrain_batch(h, cfg, plan):
+    """With ``cfg.constrain_acts``, the residual stream on a mesh (a
+    DTensor) redistributed to split over the plan's batch axes and
+    replicated over the rest (the reference's sharding constraint: it
+    makes the FSDP weights gather rather than the activations
+    replicate).  Applied after the embedding and each block, as in the
+    reference, and after each residual add inside a block: left to
+    itself, DTensor resolves a row-parallel projection's partial sums by
+    splitting the sequence, and on the 2 x 16 x 16 mesh its planner then
+    takes minutes for one product.  Unchanged without a mesh, without
+    batch axes, or where the batch does not divide by ``plan.dp``, as in
+    the reference."""
+    if not cfg.constrain_acts:
+        return h
+    from torch.distributed.tensor import DTensor
+
+    if (not isinstance(h, DTensor) or not plan.batch_axes
+            or h.shape[0] % plan.dp):
+        return h
+    from repro_torch.distributed.sharding import batch_pspec, placements_for
+
+    pl = placements_for(batch_pspec(plan, h.ndim), h.device_mesh)
+    return h if tuple(h.placements) == pl else h.redistribute(
+        h.device_mesh, pl)
 
 
 def run_blocks(params, h, cfg, plan, *, mode: str, pos_offset=0, cache=None,
@@ -338,21 +384,23 @@ def run_blocks(params, h, cfg, plan, *, mode: str, pos_offset=0, cache=None,
                 att, (nk, nv, npos) = attention_fwd(p["attn"], h, cfg, plan,
                                                     **kw)
                 new.setdefault(kind, []).append(dict(k=nk, v=nv, pos=npos))
-            h = h + att
+            h = _constrain_batch(h + att, cfg, plan)
             if kind == "moe":
                 h = h + moe_fwd(p["moe"], h, cfg)[0]
             else:
                 h = h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode)
+            h = _constrain_batch(h, cfg, plan)
             continue
         state = ({k: v[i] for k, v in c.items()} if c is not None else None)
         if kind == "rec":
             out, st = rglru.rec_block_fwd(p["rec"], h, cfg, plan, mode=mode,
                                           state=state)
-            h = h + out
+            h = _constrain_batch(h + out, cfg, plan)
             h = h + mlp_fwd(p["mlp"], h, cfg, qmode=qmode)
         else:
             h, st = rwkv6.rwkv_block_fwd(p, h, cfg, plan, mode=mode,
                                          state=state)
+        h = _constrain_batch(h, cfg, plan)
         if c is not None:                 # decode: the state in place
             for k, v in st.items():
                 c[k][i].copy_(v)
@@ -409,7 +457,9 @@ def forward(params, cfg, plan, *, tokens=None, patch_embeds=None,
     """Full forward -> ``(logits float32 (B, S, padded_vocab), cache)``;
     S counts the prepended patches.  In ``mode="train"`` the second
     element is the summed aux loss (there is no cache)."""
-    h = embed_inputs(params, cfg, tokens, patch_embeds, frame_feats)
+    h = _constrain_batch(
+        embed_inputs(params, cfg, tokens, patch_embeds, frame_feats), cfg,
+        plan)
     h, new_cache = run_blocks(params, h, cfg, plan, mode=mode,
                               pos_offset=pos_offset, cache=cache, qmode=qmode,
                               valid_len=valid_len, layers=layers,

@@ -287,13 +287,14 @@ def test_step_builders_and_meta_specs():
     jshapes = jax.eval_shape(lambda k: JT.init_lm(k, jcfg,
                                                   jconfigs.SINGLE)[0],
                              jax.random.PRNGKey(0))
-    ap = tsteps.abstract_params(cfg, SINGLE)
+    ap, ap_axes = tsteps.abstract_params(cfg, SINGLE)
     assert {k: tuple(v.shape) for k, v in _leaves_with_paths_meta(ap)} == {
         k: tuple(v.shape) for k, v in _leaves_with_paths_meta(jshapes)}
-    ao = tsteps.abstract_opt(ap, opt.OptConfig())
-    assert set(ao) == {"step", "m", "v"}
-    ac = tsteps.abstract_cache(cfg, SINGLE, 2, 32)
+    ao, ao_axes = tsteps.abstract_opt(ap, opt.OptConfig(), ap_axes)
+    assert set(ao) == set(ao_axes) == {"step", "m", "v"}
+    ac, ac_axes = tsteps.abstract_cache(cfg, SINGLE, 2, 32)
     assert ac["attn"]["k"].device.type == "meta"
+    assert len(ac_axes["attn"]["k"]) == ac["attn"]["k"].ndim
     # the train step runs one update
     params = T.init_lm(torch.Generator().manual_seed(0), cfg, SINGLE,
                        device="cpu")
