@@ -66,6 +66,23 @@ Phases, each of which makes the script exit nonzero when it fails:
    ``conv_implicit``); then ``quant_dense_kernel`` on AlexNet fc5's shape,
    both paths equal to each other and to the plain versions, with 1
    ``quantize_pack`` and 1 ``bitgemm_packed`` or ``int8_matmul`` launch;
+4c. the legacy served CNN entry point and the paper's spec walk, one
+   ``SPEC`` line: ``models.cnn.cnn_forward(params, x, spec, quant,
+   "serve")`` (its cached per-call plan, ``core.plan.cnn_serve_layers``)
+   on the card at full width, batch 8: svhn W1A4 and W1A8, AlexNet
+   224x224 W1A8 and svhn W1A1 on ``engine="faithful"``, each called twice
+   from float params (prequantized at the call) and once from the
+   compiled plan's params; every call's launches counted alone (5
+   ``conv_implicit`` + 1 ``fused_qgemm`` for svhn, 4 + 2 for AlexNet, 6
+   ``quantize_pack`` + 6 ``bitgemm_packed`` faithful, nothing else), the
+   logits (and AlexNet's fc5 output) bit for bit those of
+   ``api.build(...).compile(batch_hints=(8,)).forward`` and of the plain
+   versions; host ms of one call (median of 5) beside the compiled
+   forward's; ``pim.mapper.model_work`` equal to ``works_from_layers`` of
+   the plans compiled for ``cuda``, ``compare_designs`` for AlexNet W1A1
+   (figures of the paper's PIM model, not of the card) and
+   ``serve_weight_bytes`` of the svhn plan's params against the float
+   params;
 5. LM main path: full-width SmolLM-360M W1A8 (random weights, seed 2)
    serves two 2048-token prompts x 16 new tokens through ``ServeEngine``
    + ``LMRunner`` (flash prefill) and 16 mixed requests through
@@ -241,7 +258,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    the contract's last line.
 
 ``--kernels-only`` stops after phase 3 (a quick first check of a kernel).
-``--phase NAME`` (cnn, bitplane, lm, resilience, plan, analysis,
+``--phase NAME`` (cnn, bitplane, spec, lm, resilience, plan, analysis,
 families, modalities, fleet, train, dist, dryrun) runs the build and that
 phase alone (plan after lm, analysis after lm and plan: the phases it
 reads), without the kernel phases and the kernels line.
@@ -288,6 +305,11 @@ LOGIT_TOL_FRAC = 0.1
 # one add beside each, the floor of the AND + popcount dataflow on the
 # CUDA cores
 POPC_PER_SM_CLOCK = 16
+# the spec phase: its images' seed and each call's launches
+SPEC_SEED = 5
+SPEC_LAUNCHES = {"svhn": {"conv_implicit": 5, "fused_qgemm": 1},
+                 "alexnet": {"conv_implicit": 4, "fused_qgemm": 2},
+                 "faithful": {"quantize_pack": 6, "bitgemm_packed": 6}}
 # the bit-plane engines' main path: (bit widths, engine), and the ones
 # whose 4 s serving window is measured
 BITPLANE_PATHS = (("w1a1", "faithful"), ("w1a4", "faithful"),
@@ -1609,6 +1631,114 @@ def dense_kernel_check() -> dict:
                                        p: {k: v for k, v in c.items() if v}
                                        for p, c in counts.items()})
     return out
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``reps`` synchronized calls of ``fn``."""
+    return float(np.median([_sync_ms(fn)[1] for _ in range(reps)]))
+
+
+def spec_phase(card: str) -> dict:
+    """The legacy served entry point ``cnn_forward(mode="serve")`` on the
+    card, and the paper's spec walk beside the ``cuda`` plans (see 4c)."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.core import plan as P
+    from repro_torch.core.prequant import serve_weight_bytes
+    from repro_torch.core.quant import W1A1, W1A4, W1A8
+    from repro_torch.kernels import _lib
+    from repro_torch.models.cnn import (alexnet_spec, cnn_forward, init_cnn,
+                                        svhn_cnn_spec)
+    from repro_torch.pim.energy import TABLE2_AREA_MM2
+    from repro_torch.pim.mapper import (compare_designs, model_work,
+                                        works_from_layers)
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(SPEC_SEED)
+    svhn, alex = svhn_cnn_spec(), alexnet_spec()
+    svhn_p = init_cnn(torch.Generator(device=dev).manual_seed(0), svhn)
+    alex_p = init_cnn(torch.Generator(device=dev).manual_seed(1), alex)
+
+    def image(hw):
+        return torch.from_numpy(rs.uniform(0, 1, (8, hw, hw, 3)).astype(
+            np.float32)).to(dev)
+
+    x40, x224 = image(40), image(224)
+    faithful = dataclasses.replace(W1A1, engine="faithful")
+    cases = (("svhn w1a4", svhn, W1A4, svhn_p, x40, SPEC_LAUNCHES["svhn"]),
+             ("svhn w1a8", svhn, W1A8, svhn_p, x40, SPEC_LAUNCHES["svhn"]),
+             ("alexnet w1a8", alex, W1A8, alex_p, x224,
+              SPEC_LAUNCHES["alexnet"]),
+             ("svhn w1a1 faithful", svhn, faithful, svhn_p, x40,
+              SPEC_LAUNCHES["faithful"]))
+    report = {"cases": {}, "card": card}
+    for tag, spec, q, params, x, want in cases:
+        hw = x.shape[1]
+        compiled = api.build(spec, q, params=params, img_hw=hw).compile(
+            target="cuda", batch_hints=(8,))
+        cnn_forward(params, x, spec, q, "serve")          # warm-up
+        torch.cuda.synchronize()
+        outs, launches = [], []
+        for p in (params, params, compiled.params):
+            _lib.reset_launches()
+            outs.append(cnn_forward(p, x, spec, q, "serve"))
+            torch.cuda.synchronize()
+            launches.append({k: v for k, v in _lib.LAUNCHES.items() if v})
+        for i, got in enumerate(launches):
+            check(got == want, f"spec {tag}: call {i} launched {got}, "
+                               f"expected {want}")
+        check(all(o.device.type == "cuda" for o in outs),
+              f"spec {tag}: logits not on the card")
+        layers = P.layers_for_batch(compiled.plan, 8)
+        plain = P.execute_cnn_layers(layers, compiled.params, x, q,
+                                     reference=True)
+        row = dict(launches_per_call=launches[0],
+                   vs_compiled=_check_logits(
+                       f"spec {tag} vs compiled", outs[0].cpu().numpy(),
+                       compiled.forward(x).cpu().numpy(), exact=True),
+                   vs_plain=_check_logits(
+                       f"spec {tag} vs plain", outs[0].cpu().numpy(),
+                       plain.cpu().numpy(), exact=True))
+        for i, o in enumerate(outs[1:], 1):
+            check(torch.equal(o, outs[0]), f"spec {tag}: call {i} differs "
+                                           f"from call 0")
+        if spec is alex:
+            # past fc5 the logits do not depend on the image (per-sample
+            # norm on 1x1 maps): fc5's own output is held too
+            legacy = P.cnn_serve_layers(spec, q, batch=8, img_hw=(hw, hw))
+            row["fc5_vs_plain"] = _check_logits(
+                f"spec {tag} fc5 vs plain",
+                P.execute_cnn_layers(legacy[:6], params[:6], x, q)
+                .cpu().numpy(),
+                P.execute_cnn_layers(layers[:6], compiled.params[:6], x, q,
+                                     reference=True).cpu().numpy(),
+                exact=True)
+        row.update(
+            host_ms_float_params=_host_ms(
+                lambda: cnn_forward(params, x, spec, q, "serve")),
+            host_ms_prequantized_params=_host_ms(
+                lambda: cnn_forward(compiled.params, x, spec, q, "serve")),
+            host_ms_compiled_forward=_host_ms(lambda: compiled.forward(x)))
+        works = works_from_layers(compiled.plan.layers)
+        walk = model_work(spec, hw, q.a_bits, q.w_bits)
+        check(works == walk, f"spec {tag}: model_work != works_from_layers "
+                             f"of the cuda plan")
+        row["model_work_equals_plan_works"] = True
+        row["macs"] = sum(w.macs for w in works)
+        if tag == "svhn w1a4":
+            report["serve_weight_bytes"] = dict(
+                svhn_w1a4_plan_params=serve_weight_bytes(compiled.params),
+                svhn_float_params=serve_weight_bytes(params))
+        report["cases"][tag] = row
+        del compiled, plain, outs
+    report["compare_designs"] = dict(
+        model="alexnet", img=224, m_bits=1, n_bits=1,
+        note="the paper's PIM model (pim.energy), not a measurement of "
+             "the card",
+        designs=compare_designs(alex, 224, 1, 1, TABLE2_AREA_MM2))
+    print("SPEC", json.dumps(report), flush=True)
+    return report
 
 
 def _hold_tokens(tag: str, got: np.ndarray, ref: np.ndarray,
@@ -4680,7 +4810,7 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
 # with its line in the log; --phase NAME runs BUILD, the phases NAME reads
 # (PHASE_NEEDS) and NAME
 PHASES = (("cnn", "CNN MAIN PATH"), ("bitplane", "FAITHFUL/INT8 MAIN PATH"),
-          ("lm", "LM MAIN PATH"), ("resilience", "RESILIENCE PHASE"),
+          ("spec", "SPEC PHASE"), ("lm", "LM MAIN PATH"), ("resilience", "RESILIENCE PHASE"),
           ("plan", "PLAN PHASE"), ("analysis", "ANALYSIS PHASE"),
           ("families", "FAMILIES PHASE"), ("modalities", "MODALITIES PHASE"),
           ("fleet", "FLEET PHASE"), ("train", "TRAIN PHASE"),
@@ -4736,6 +4866,7 @@ def main() -> int:
     done: dict = {}
     run = {"cnn": lambda: main_path(card),
            "bitplane": lambda: bitplane_main_path(card),
+           "spec": lambda: spec_phase(card),
            "lm": lambda: lm_main_path(card),
            "resilience": lambda: resilience_phase(card),
            "plan": lambda: plan_phase(card, done["lm"]),

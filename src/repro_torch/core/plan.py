@@ -10,6 +10,9 @@ engine's weight planes are packed once, at compile or load.
 resolves one verdict per distinct (K, N) GEMM into the plan's dense table
 and one per attention geometry into its attention table; the serving
 engines consult both while the plan is active (:meth:`ModelPlan.activate`).
+:func:`cnn_serve_layers` is the cached per-call plan of the legacy entry
+point ``models.cnn.cnn_forward(mode="serve")``, which
+:func:`execute_cnn_layers` runs on float or prequantized params.
 
 Engines resolve three ways, recorded per layer as ``engine_source``:
 ``override`` (an explicit ``QuantConfig.engine``, checked feasible at
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -42,7 +46,8 @@ import torch
 
 from repro_torch.core import and_accum
 from repro_torch.core.prequant import (is_fp_layer, is_prequantized,
-                                       prequantize_cnn_params)
+                                       prequantize_cnn_params,
+                                       prequantize_conv_weight)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 
@@ -197,9 +202,12 @@ def _verified(plan: "ModelPlan", verify: bool) -> "ModelPlan":
 def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
                     conv, *, autotune: bool = False, device=None,
                     signed: bool = False, act_dtype=torch.float32,
-                    layer_desc: str) -> tuple[str, str]:
-    """One layer's engine verdict -> (engine, source)."""
+                    strict: bool = True, layer_desc: str) -> tuple[str, str]:
+    """One layer's engine verdict -> (engine, source).  ``strict=False``
+    takes an explicit engine without the feasibility check."""
     if quant.engine not in ("auto", "fp"):
+        if not strict:
+            return quant.engine, "override"
         ok, reason = ops.engine_feasible(quant.engine, m, k, n, quant.a_bits,
                                          quant.w_bits, target, conv)
         if not ok:
@@ -219,9 +227,12 @@ def _resolve_engine(quant: QuantConfig, m: int, k: int, n: int, target: str,
 
 
 def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
-                     autotune: bool = False, device=None):
+                     autotune: bool = False, device=None,
+                     strict: bool = True):
     """Trace the forward's shape evolution (fc resize, SAME/VALID policy,
-    2x2 pools) and resolve one engine per (layer, batch hint)."""
+    2x2 pools) and resolve one engine per (layer, batch hint).
+    ``strict=False`` takes an explicit engine unchecked: an infeasible one
+    then fails at its kernel's wrapper."""
     from repro_torch.core.conv_lowering import _out_hw
 
     layers = []
@@ -243,7 +254,8 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
                                      batch=b)
                 eng, source = _resolve_engine(
                     quant, b * out_h * out_w, kdim, s.cout, target, conv,
-                    autotune=autotune, device=device, layer_desc=f"layer {i} ({name}, {s.k}x{s.k} "
+                    autotune=autotune, device=device, strict=strict,
+                    layer_desc=f"layer {i} ({name}, {s.k}x{s.k} "
                                f"cin={s.cin} cout={s.cout} batch={b})")
                 resolved.append((b, eng))
             engines = tuple(resolved)
@@ -340,13 +352,48 @@ def compile_model(params, spec, quant: QuantConfig, *, target: str = "cuda",
         autotune=tuned), verify)
 
 
+# The per-call plan of the legacy entry point (``cnn_forward(mode="serve")``
+# with no compiled plan): cached per (spec, quant, shape, target); the
+# dispatch epoch in the key keeps a changed verdict source from serving
+# stale layers.
+@functools.lru_cache(maxsize=512)
+def _cached_cnn_layers(spec_t, quant, batch, img_hw, target, _epoch):
+    return _plan_cnn_layers(spec_t, quant, batches=(batch,), img_hw=img_hw,
+                            target=target, strict=False)
+
+
+def cnn_serve_layers(spec, quant: QuantConfig, *, batch: int, img_hw,
+                     target: str = "cuda"):
+    """Per-call plan for ``cnn_forward(mode="serve")``: the engine choices
+    a compiled plan makes at this batch, without its proof or cost
+    annotations, and taking an explicit engine unchecked (an infeasible
+    one fails at its kernel's wrapper, never on another engine)."""
+    return _cached_cnn_layers(tuple(spec), quant, int(batch),
+                              (int(img_hw[0]), int(img_hw[1])), target,
+                              ops.dispatch_epoch())
+
+
+def _layer_weights(p: dict, lp: LayerPlan):
+    """A quantized layer's ``(w_lv, s_w, z_w)``: the plan's prequantized
+    levels, or a float ``w`` prequantized here, at the call."""
+    if "w_lv" in p:
+        return p["w_lv"], p["s_w"], p["z_w"]
+    return prequantize_conv_weight(p["w"], lp.w_bits)
+
+
 def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
                        reference: bool = False) -> torch.Tensor:
     """Run the compiled layer sequence.  x (B,H,W,C) in [0,1] -> logits.
-    ``reference=True`` runs the kernels' plain versions (the oracle)."""
+    Layer dicts carry prequantized levels or, as float checkpoints, ``w``
+    (prequantized at the call); a faithful layer without ``w_planes``
+    packs them at the call.  ``reference=True`` runs the kernels' plain
+    versions (the oracle)."""
     from repro_torch.core.conv_lowering import conv2d_float, quant_conv2d_pre
     from repro_torch.models.cnn import _norm_act, avg_pool2, resize_linear
 
+    if len(params) != len(layers):
+        raise PlanError(f"{len(params)} layers of params for a plan of "
+                        f"{len(layers)} layers")
     h = x
     last = len(layers) - 1
     for lp, p in zip(layers, params):
@@ -355,8 +402,9 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
         if lp.fp:
             h = conv2d_float(h, p["w"], stride=lp.stride, padding=lp.padding)
         else:
+            w_lv, s_w, z_w = _layer_weights(p, lp)
             h = quant_conv2d_pre(
-                h, p["w_lv"], p["s_w"], p["z_w"], kh=lp.kh, kw=lp.kw,
+                h, w_lv, s_w, z_w, kh=lp.kh, kw=lp.kw,
                 stride=lp.stride, padding=lp.padding, a_bits=lp.a_bits,
                 w_bits=lp.w_bits, engine=lp.engine,
                 w_planes=p.get("w_planes"), reference=reference)

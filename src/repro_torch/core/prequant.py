@@ -54,3 +54,17 @@ def prequantize_cnn_params(params, spec: Sequence, quant: QuantConfig):
 
 def is_prequantized(params) -> bool:
     return any(isinstance(p, dict) and "w_lv" in p for p in params)
+
+
+def serve_weight_bytes(params) -> int:
+    """Weight bytes the serve path reads per forward: each layer's
+    ``w_lv`` as stored, else its float ``w`` (derived ``w_planes`` are not
+    counted).  Levels are stored as :func:`level_dtype` gives them, one
+    byte up to 8 bits, where the reference keeps 8-bit levels as int32:
+    the two counts agree up to 7-bit weights and differ at 8 bits."""
+    total = 0
+    for p in params:
+        w = p.get("w_lv", p.get("w"))
+        if w is not None:
+            total += w.numel() * w.element_size()
+    return total

@@ -10,7 +10,12 @@ reference's straight-through estimator ``x + stop_gradient(q - x)``
 (here ``x + (q - x).detach()``: its forward value computed as written,
 which is not always ``q`` in float32, and its gradient the identity),
 and :func:`quantize_gradient`, DoReFa's stochastic k-bit gradient
-quantizer (identity forward).  :func:`clip01` is ``jnp.clip(x, 0, 1)``
+quantizer (identity forward); :func:`fake_quant_act` and
+:func:`fake_quant_dense_weight` apply the first two by a config.  The
+paper's closed forms: Table I's complexity (bit-plane pairs per MAC,
+``QuantConfig.inference_complexity`` = w_bits * a_bits and
+``training_complexity`` = that + w_bits * g_bits) and Fig. 8's storage
+(:func:`model_storage_bits`).  :func:`clip01` is ``jnp.clip(x, 0, 1)``
 with the reference's gradient at the bounds: ``jax.grad`` of the clip
 gives 0.5 at exactly 0 and 1 (``max``/``min`` split ties), where
 ``torch.clamp`` gives 1.  ``torch.round`` rounds half to even, exactly
@@ -48,6 +53,16 @@ class QuantConfig:
     first_last_fp: bool = True
     engine: str = "auto"
     act_scale_mode: str = "tensor"
+
+    @property
+    def inference_complexity(self) -> int:
+        """Bit-plane pairs per MAC (paper Table I)."""
+        return self.w_bits * self.a_bits
+
+    @property
+    def training_complexity(self) -> int:
+        """Bit-plane pairs per MAC of a training step (paper Table I)."""
+        return self.w_bits * self.a_bits + self.w_bits * self.g_bits
 
     def tag(self) -> str:
         return f"w{self.w_bits}a{self.a_bits}g{self.g_bits}"
@@ -249,3 +264,27 @@ def quantize_gradient(x: torch.Tensor, bits: int,
     """Identity forward; the backward quantizes the incoming gradient to
     ``bits`` (:func:`quantize_gradient_values`)."""
     return _QuantizeGradient.apply(x, bits, generator)
+
+
+def fake_quant_dense_weight(w: torch.Tensor, cfg: QuantConfig,
+                            is_first_last: bool = False) -> torch.Tensor:
+    """:func:`quantize_weight` at ``cfg.w_bits`` (STE), or ``w`` itself on
+    fp configs and on a first/last layer the config keeps fp."""
+    if cfg.engine == "fp" or (is_first_last and cfg.first_last_fp):
+        return w
+    return quantize_weight(w, cfg.w_bits)
+
+
+def fake_quant_act(a: torch.Tensor, cfg: QuantConfig,
+                   is_first_last: bool = False) -> torch.Tensor:
+    """:func:`quantize_activation` at ``cfg.a_bits`` (STE), or ``a``
+    itself on fp configs and on a first/last layer the config keeps fp."""
+    if cfg.engine == "fp" or (is_first_last and cfg.first_last_fp):
+        return a
+    return quantize_activation(a, cfg.a_bits)
+
+
+def model_storage_bits(n_params: int, n_acts: int, w_bits: int,
+                       a_bits: int) -> int:
+    """Fig. 8 storage model: parameter bits + activation buffer bits."""
+    return n_params * w_bits + n_acts * a_bits

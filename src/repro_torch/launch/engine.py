@@ -209,6 +209,10 @@ class CNNRunner:
         if self.device is None:
             raise ValueError("plan params hold no tensor")
 
+    def plan_fingerprint(self) -> str:
+        """The served plan's fingerprint."""
+        return self.plan.fingerprint()
+
     def shape_key(self, payload) -> tuple:
         return ("cnn",) + tuple(np.shape(payload))
 
@@ -865,6 +869,12 @@ class ContinuousLMEngine(_SubmitRetryMixin):
                     self.pump()
         return self.drain()
 
+    def warm(self) -> "ContinuousLMEngine":
+        """Run each of the engine's device programs (a prefill chunk, a
+        decode step, a page reset) once, on one throwaway request, so the
+        kernels are built before the first served one."""
+        self.serve([(np.asarray([1], np.int32), 2)])
+        return self
 
     # -- epoch checkpoints ---------------------------------------------------
 

@@ -10,9 +10,13 @@ frame features, which only ``models.transformer.prefill(frame_feats=)``
 takes, so its prefill raises a ``ValueError`` naming that call (the
 reference's CLI fails on it too).  Runs on
 the card (``--device cuda``, the default) unless asked for the CPU.  A
-quantized ``--quant`` serves prequantized weights (``engine=serve``);
-``--quant w32a32`` or no ``--quant`` serves the float weights through
-the train-mode ``qdense`` (``engine=train``), as the reference does.  Decode is a Python loop over tokens (the reference's one-trace
+quantized ``--quant`` serves through ``qdense``'s serve quantization
+(``engine=serve``): the float weights, quantized at each call, unless
+``--prequant`` quantizes them once at load or a plan (``--plan-cache``,
+``--autotune``) holds them prequantized; ``--quant w32a32`` or no
+``--quant`` serves the float weights through the train-mode ``qdense``
+(``engine=train``, where ``--prequant`` does nothing), as the reference
+does.  Decode is a Python loop over tokens (the reference's one-trace
 ``lax.scan``): each step runs the model once on the cache, which it
 updates in place.  ``--throughput`` drives the bucket engine
 (``launch/engine.ServeEngine`` + ``LMRunner``; ``devices=N`` printed) on
@@ -305,6 +309,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--quant", default=None, choices=list(PAPER_CONFIGS))
+    ap.add_argument("--prequant", action="store_true",
+                    help="quantize the projection weights to levels once "
+                         "at load (--plan-cache does it too, and keeps "
+                         "them on disk)")
     ap.add_argument("--plan-cache", default=None, metavar="PATH",
                     help="compile-once execution plan: reload PATH.json if "
                          "it exists (no requantization, no autotune), else "
@@ -372,7 +380,7 @@ def main(argv=None):
             print(f"plan: compiled{' +autotune' if args.autotune else ''} in "
                   f"{compiled.compile_s * 1e3:.1f}ms -> {compiled.cache_path}")
         params = model_plan.params
-    elif qmode == "serve":
+    elif args.prequant and qmode == "serve":
         params = prequantize_params(params, cfg)
     # with a plan, every dispatch of the run is a lookup in its tables
     with (model_plan.activate() if model_plan is not None
@@ -397,7 +405,8 @@ def _run(params, cfg, qmode: str, args, device, model_plan) -> None:
     _, dt_warm = serve_once(params, cfg, SINGLE, prompts, S_d, qmode,
                             prefill_fn, generate_fn)
     print(f"arch={cfg.name} quant={args.quant or 'fp'} device={device} "
-          f"engine={qmode}")
+          f"engine={qmode}"
+          f"{' prequant' if args.prequant and qmode == 'serve' else ''}")
     print(f"generated {B}x{S_d} tokens: cold {dt_cold:.2f}s "
           f"({B * S_d / dt_cold:.1f} tok/s incl. kernel builds), "
           f"warm {dt_warm * 1e3:.1f}ms ({B * S_d / dt_warm:.1f} tok/s)")

@@ -9,8 +9,10 @@ on the card unless ``--device cpu``::
 ``gloo`` with ``--device cpu``): spawned here, or one per process when
 started by ``torchrun`` (which sets ``RANK``/``WORLD_SIZE``), over
 ``launch.mesh.make_host_mesh(model=--model)`` and its ``make_plan``.
-(The reference takes its 16 x 16 production mesh whenever it sees more
-than one device, which no host short of 256 devices can build.)
+``--multi-pod`` takes ``launch.mesh.make_production_mesh(multi_pod=True)``
+instead, which raises on a world that is not its 512 ranks.  (The
+reference takes its 16 x 16 production mesh whenever it sees more than
+one device, which no host short of 256 devices can build.)
 
 Batches come from ``data.synthetic.lm_batch`` (seed 0): the whole global
 batch on every rank, split over the mesh's ``data`` axis by the trainer;
@@ -72,6 +74,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="ranks to train over, one a device")
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's 'model' (tensor-parallel) axis size")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="train over launch.mesh.make_production_mesh("
+                         "multi_pod=True), the 2 x 16 x 16 mesh of 512 ranks")
     return ap
 
 
@@ -121,11 +126,16 @@ def _train(args, rank: int, world: int, init_method):
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
             init_method=init_method, rank=rank, world_size=world)
-        from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
-
-        mesh = make_host_mesh(model=args.model, device_type=device.type)
-        plan = make_plan(mesh_shape_dict(mesh))
     try:
+        if init_method is not None or args.multi_pod:
+            from repro_torch.launch import mesh as M
+
+            mesh = (M.make_production_mesh(multi_pod=True,
+                                           device_type=device.type)
+                    if args.multi_pod else
+                    M.make_host_mesh(model=args.model,
+                                     device_type=device.type))
+            plan = make_plan(M.mesh_shape_dict(mesh))
         tr = Trainer(cfg, plan,
                      OptConfig(lr=args.lr, warmup_steps=10,
                                total_steps=args.steps),

@@ -5,14 +5,17 @@
   precision.
 * ``alexnet`` — binary-weight AlexNet for the ImageNet rows.
 
-Serve mode walks a compiled plan (:mod:`repro_torch.core.plan`); this
-module holds the specs, the seeded initializer, the per-layer pieces the
-plan executor applies between convolutions, and the training forward:
-:func:`cnn_forward` in ``mode="train"`` (the DoReFa fake-quant conv on
+This module holds the specs, the seeded initializer, the per-layer
+pieces the plan executor applies between convolutions, the forward and
+the loss, and the spec walk of the paper's storage model
+(:func:`count_params`, :func:`count_acts`, :func:`count_macs`).
+:func:`cnn_forward` in ``mode="serve"`` runs the cached per-call plan of
+:func:`repro_torch.core.plan.cnn_serve_layers` on float or prequantized
+params: on the card its quantized layers launch the Hopper kernels.  Any
+other mode is the training forward (the DoReFa fake-quant conv on
 straight-through weights, batch statistics in the norm, optional k-bit
-gradient quantization) and :func:`cnn_loss`.  Training launches no port
-kernel: its convolutions are float (``conv2d_float``), as the
-reference's are.
+gradient quantization), which launches no port kernel: its convolutions
+are float (``conv2d_float``), as the reference's are.
 """
 from __future__ import annotations
 
@@ -152,21 +155,31 @@ def resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
 def cnn_forward(params, x: torch.Tensor, spec: Sequence[ConvSpec],
                 quant: QuantConfig, mode: str = "train",
                 g_gen: torch.Generator | None = None) -> torch.Tensor:
-    """The training forward: x (B,H,W,3) in [0,1] -> logits (B, classes).
+    """x (B,H,W,3) in [0,1] -> logits (B, classes).
 
-    Each layer: the float conv (fp layers) or the fake-quant conv on
-    :func:`quantize_weight`'s straight-through weights (the input is
-    already quantized by the previous norm-act); with ``g_gen``, the
-    k-bit gradient quantizer after every non-fp layer (its noise drawn
-    from ``g_gen``, layer after layer, where the reference folds the layer
-    index into its key); bias; the train-mode norm-act on all but the last
-    layer; the 2x2 average pool; an FC layer over a larger map first
-    resizes it to k x k; finally the global mean.  Serve mode runs a
-    compiled plan: ``api.build(spec, quant, params=...).compile()``."""
-    if mode != "train":
-        raise ValueError(
-            f"cnn_forward runs the training forward; mode {mode!r} is served "
-            f"through a compiled plan (api.build(...).compile().forward)")
+    ``mode="serve"`` runs the per-call plan of
+    :func:`repro_torch.core.plan.cnn_serve_layers` for this (spec, quant,
+    batch, image size), cached, on ``x``'s device: the cuda target's
+    engines (an explicit ``quant.engine`` taken unchecked), per-sample
+    norm statistics, float ``params`` prequantized at the call.  On a
+    CUDA ``x`` the quantized layers launch the Hopper kernels; a compiled
+    plan (``api.build(...).compile()``) gives the same logits.
+
+    Any other mode is the training forward.  Each layer: the float conv
+    (fp layers) or the fake-quant conv on :func:`quantize_weight`'s
+    straight-through weights (the input is already quantized by the
+    previous norm-act); with ``g_gen``, the k-bit gradient quantizer after
+    every non-fp layer (its noise drawn from ``g_gen``, layer after layer,
+    where the reference folds the layer index into its key); bias; the
+    train-mode norm-act on all but the last layer; the 2x2 average pool;
+    an FC layer over a larger map first resizes it to k x k; finally the
+    global mean."""
+    if mode == "serve":
+        from repro_torch.core.plan import cnn_serve_layers, execute_cnn_layers
+
+        layers = cnn_serve_layers(spec, quant, batch=x.shape[0],
+                                  img_hw=(x.shape[1], x.shape[2]))
+        return execute_cnn_layers(layers, params, x, quant)
     h = x
     for i, (p, s) in enumerate(zip(params, spec)):
         h = cnn_layer(p, s, h, quant, i == len(spec) - 1, g_gen)
@@ -219,3 +232,32 @@ def cnn_loss(params, batch: dict, spec: Sequence[ConvSpec],
     "acc"})``."""
     return xent(cnn_forward(params, batch["image"], spec, quant, "train",
                             g_gen), batch["label"])
+
+
+def count_params(spec: Sequence[ConvSpec]) -> int:
+    return sum(s.k * s.k * s.cin * s.cout for s in spec)
+
+
+def count_acts(spec: Sequence[ConvSpec], img: int) -> int:
+    """Peak activation element count for the storage model (Fig. 8)."""
+    h = img
+    total = img * img * 3
+    for s in spec:
+        h = max(h // s.stride, 1)
+        total += h * h * s.cout
+        if s.pool:
+            h //= 2
+    return total
+
+
+def count_macs(spec: Sequence[ConvSpec], img: int) -> int:
+    """MAC count per image (the paper's '80 FLOPs' ~ 80 MFLOPs on 40x40)."""
+    h = img
+    total = 0
+    for s in spec:
+        oh = 1 if s.fc else max(-(-h // s.stride), 1)
+        total += oh * oh * s.k * s.k * s.cin * s.cout
+        h = oh
+        if s.pool:
+            h = max(h // 2, 1)
+    return total

@@ -385,10 +385,21 @@ def test_bitwise_cnn_learns_w1a4():
 
 
 def test_cnn_forward_serve_mode_names_the_plan():
+    """Serve mode runs the per-call plan ``core.plan.cnn_serve_layers``
+    gives for the call, and refuses params that do not match that plan,
+    naming its layer count."""
+    from repro_torch.core import plan as plan_mod
+
     spec = cnn.svhn_cnn_spec(8)
-    with pytest.raises(ValueError, match="compile"):
-        cnn.cnn_forward([], torch.zeros(1, 40, 40, 3), spec, quant.W1A4,
-                        "serve")
+    x = torch.rand((1, 40, 40, 3), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="a plan of 8 layers"):
+        cnn.cnn_forward([], x, spec, quant.W1A4, "serve")
+    params = cnn.init_cnn(torch.Generator().manual_seed(0), spec)
+    layers = plan_mod.cnn_serve_layers(spec, quant.W1A4, batch=1,
+                                       img_hw=(40, 40))
+    assert torch.equal(
+        cnn.cnn_forward(params, x, spec, quant.W1A4, "serve"),
+        plan_mod.execute_cnn_layers(layers, params, x, quant.W1A4))
 
 
 def test_dataclass_fields_unchanged():
