@@ -4838,15 +4838,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from repro_torch.kernels import _lib
+    from repro_torch.launch.trace import TRACER
 
     t0 = time.perf_counter()
     _lib.build_all()
+    builds = TRACER.records(t0).where("kernels.build")
     print(f"BUILD {time.perf_counter() - t0:.1f} s "
-          + json.dumps({k: round(v, 1) for k, v in _lib.BUILD_SECONDS.items()}))
-    for name, log in _lib.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "ptxas info" in line or "spill" in line:
-                print(f"PTXAS {name}: {line.strip()}")
+          + json.dumps({_lib.SOURCES[i]: round(b - a, 1) for i, a, b
+                        in zip(builds.ident, builds.t0, builds.t1)}))
     if args.phase is None:
         flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
         t0 = time.perf_counter()

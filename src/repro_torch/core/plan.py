@@ -50,6 +50,7 @@ from repro_torch.core.prequant import (is_fp_layer, is_prequantized,
                                        prequantize_conv_weight)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.trace import TRACER
 
 PLAN_VERSION = 1
 
@@ -387,7 +388,8 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
     Layer dicts carry prequantized levels or, as float checkpoints, ``w``
     (prequantized at the call); a faithful layer without ``w_planes``
     packs them at the call.  ``reference=True`` runs the kernels' plain
-    versions (the oracle)."""
+    versions (the oracle).  Each layer's convolution is an
+    ``executor.conv`` span, each norm an ``executor.norm`` span."""
     from repro_torch.core.conv_lowering import conv2d_float, quant_conv2d_pre
     from repro_torch.models.cnn import _norm_act, avg_pool2, resize_linear
 
@@ -399,18 +401,21 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
     for lp, p in zip(layers, params):
         if lp.fc and lp.kh > 1 and h.shape[1] != lp.kh:
             h = resize_linear(h, lp.kh)
-        if lp.fp:
-            h = conv2d_float(h, p["w"], stride=lp.stride, padding=lp.padding)
-        else:
-            w_lv, s_w, z_w = _layer_weights(p, lp)
-            h = quant_conv2d_pre(
-                h, w_lv, s_w, z_w, kh=lp.kh, kw=lp.kw,
-                stride=lp.stride, padding=lp.padding, a_bits=lp.a_bits,
-                w_bits=lp.w_bits, engine=lp.engine,
-                w_planes=p.get("w_planes"), reference=reference)
+        with TRACER.span("executor.conv"):
+            if lp.fp:
+                h = conv2d_float(h, p["w"], stride=lp.stride,
+                                 padding=lp.padding)
+            else:
+                w_lv, s_w, z_w = _layer_weights(p, lp)
+                h = quant_conv2d_pre(
+                    h, w_lv, s_w, z_w, kh=lp.kh, kw=lp.kw,
+                    stride=lp.stride, padding=lp.padding, a_bits=lp.a_bits,
+                    w_bits=lp.w_bits, engine=lp.engine,
+                    w_planes=p.get("w_planes"), reference=reference)
         h = h + p["b"]
         if lp.index < last:
-            h = _norm_act(h, p["g"], p["beta"], quant, lp.role, "serve")
+            with TRACER.span("executor.norm"):
+                h = _norm_act(h, p["g"], p["beta"], quant, lp.role, "serve")
         if lp.pool:
             h = avg_pool2(h)
     return torch.mean(h, dim=(1, 2))
@@ -424,15 +429,17 @@ def layers_for_batch(plan: ModelPlan, batch: int):
 
 def plan_forward(plan: ModelPlan, x: torch.Tensor, params=None,
                  reference: bool = False) -> torch.Tensor:
-    """Execute a compiled CNN plan on ``x`` (on the params' device)."""
+    """Execute a compiled CNN plan on ``x`` (on the params' device): an
+    ``executor.plan`` span, the host's enqueue of one forward."""
     if plan.kind != "cnn":
         raise PlanError(f"plan_forward executes CNN plans, got {plan.kind!r}")
     params = plan.params if params is None else params
     if params is None:
         raise PlanError("structure-only plan (compiled with params=None) "
                         "cannot execute")
-    return execute_cnn_layers(layers_for_batch(plan, int(x.shape[0])),
-                              params, x, plan.quant, reference=reference)
+    with TRACER.span("executor.plan"):
+        return execute_cnn_layers(layers_for_batch(plan, int(x.shape[0])),
+                                  params, x, plan.quant, reference=reference)
 
 
 def plan_energy_pj(plan: ModelPlan) -> float:

@@ -6,7 +6,10 @@ first use (never at import: the CPU tests import every module), all
 sources in parallel, into ``build/kernels/`` at the repository root; a
 library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source never loads a stale
-build.
+build.  Each build is a ``kernels.build`` record of
+``launch.trace.TRACER`` (its identifier the source's index in
+:data:`SOURCES`) and counts in its ``kernels.builds`` counter; each first
+load of a library is a ``kernels.load`` span.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, keyed by
 kernel name (:data:`KERNELS` names each kernel's source), and runs its
@@ -25,7 +28,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from repro_torch.launch.trace import TRACER
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -88,8 +94,6 @@ def local_shape(t) -> tuple:
 SMS, BLOCKS_PER_SM, MAX_SPLIT = 132, 4, 8
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, str] = {}   # name -> nvcc/ptxas output of the build
-BUILD_SECONDS: dict[str, float] = {}
 
 
 def split_steps(tiles: int, nsteps: int, skinny: bool,
@@ -131,28 +135,34 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _build(name: str, out: Path) -> tuple:
+    """One ``nvcc`` run -> (its process, its start and end)."""
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    t1 = time.perf_counter()
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    return proc, t0, t1
+
+
 def build_all(names=SOURCES) -> dict[str, Path]:
-    """Compile every missing library, one ``nvcc`` per source, all started
+    """Compile every missing library, one ``nvcc`` per source, all run
     together.  Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
-    procs = {}
-    t0 = time.perf_counter()
-    for name, out in todo.items():
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            runs = dict(zip(todo, pool.map(_build, todo, todo.values())))
+        for name, (proc, t0, t1) in runs.items():
+            TRACER.add("kernels.build", t0, t1, SOURCES.index(name))
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
+                              f"{proc.stdout}")
+        TRACER.count("kernels.builds", len(todo) - len(failed))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {n: _lib_path(n) for n in names}
@@ -162,10 +172,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name`` (built on first use)."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
+        with TRACER.span("kernels.load", SOURCES.index(name)):
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
 

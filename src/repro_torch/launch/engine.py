@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.kv_pages import PagePool, PoolExhausted, pages_needed
+from repro_torch.launch.trace import TRACER
 
 
 class QueueFull(RuntimeError):
@@ -81,6 +82,9 @@ class Result:
     # top-2 logit margin of each greedy pick (ContinuousLMEngine with
     # record_margins=True), else None
     margins: Optional[np.ndarray] = None
+    # the dispatch that served it (ServeEngine): the identifier of its
+    # bucket's spans in ``launch.trace.TRACER``; -1 elsewhere
+    dispatch: int = -1
 
     @property
     def latency_s(self) -> float:
@@ -101,6 +105,7 @@ class Result:
 class Bucket:
     key: Any
     requests: list
+    t_closed: Optional[float] = None   # when it stopped taking requests
 
 
 class BucketBatcher:
@@ -124,21 +129,22 @@ class BucketBatcher:
             self._opened_at[key] = now
         q.append(req)
         if len(q) >= self.max_batch:
-            return self._close(key)
+            return self._close(key, now)
         return None
 
     def take_expired(self, now: float) -> list[Bucket]:
         keys = [k for k, t in self._opened_at.items()
                 if now - t >= self.flush_deadline_s and self._open.get(k)]
-        return [self._close(k) for k in keys]
+        return [self._close(k, now) for k in keys]
 
-    def take_all(self) -> list[Bucket]:
-        return [self._close(k) for k in list(self._open) if self._open[k]]
+    def take_all(self, now: float) -> list[Bucket]:
+        return [self._close(k, now) for k in list(self._open)
+                if self._open[k]]
 
-    def _close(self, key: Any) -> Bucket:
+    def _close(self, key: Any, now: float) -> Bucket:
         reqs = self._open.pop(key)
         self._opened_at.pop(key, None)
-        return Bucket(key, reqs)
+        return Bucket(key, reqs, now)
 
 
 def _collate(payloads, pad_to: int, dtype) -> np.ndarray:
@@ -419,16 +425,17 @@ class ServeEngine(_SubmitRetryMixin):
             self._ready.clear()
 
     def _flush_all(self) -> None:
-        self._ready.extend(self.batcher.take_all())
+        self._ready.extend(self.batcher.take_all(self.clock()))
         if self._ready:
             self._execute(list(self._ready))
             self._ready.clear()
 
     def drain(self) -> list[Result]:
         """Flush everything, run to idle, return results ordered by rid."""
-        self._flush_all()
-        out = [self._results[rid] for rid in sorted(self._results)]
-        self._results.clear()
+        with TRACER.span("engine.drain"):
+            self._flush_all()
+            out = [self._results[rid] for rid in sorted(self._results)]
+            self._results.clear()
         return out
 
     def serve(self, payloads) -> list[Result]:
@@ -451,25 +458,33 @@ class ServeEngine(_SubmitRetryMixin):
         return -(-padded // n_data) * n_data
 
     def _stage(self, bucket: Bucket):
-        """Start the host->device copy of one bucket: from a pinned host
-        buffer with ``non_blocking`` on the card, so it overlaps compute;
-        with a mesh, each shard to its device."""
+        """Number the bucket's dispatch and start its host->device copy:
+        from a pinned host buffer with ``non_blocking`` on the card, so it
+        overlaps compute; with a mesh, each shard to its device."""
         from repro_torch.distributed.sharding import split_batch
 
-        padded = self._pad_to(len(bucket.requests))
-        host = torch.from_numpy(
-            self.runner.collate([r.payload for r in bucket.requests], padded))
-        devices = self.mesh or (self.device,)
-        if any(d.type == "cuda" for d in devices):
-            host = host.pin_memory()
-        if self.mesh is not None:
-            return bucket, padded, split_batch(host, self.mesh)
-        return bucket, padded, host.to(self.device, non_blocking=True)
+        dispatch = TRACER.new_dispatch()
+        with TRACER.span("engine.stage", dispatch):
+            padded = self._pad_to(len(bucket.requests))
+            host = torch.from_numpy(self.runner.collate(
+                [r.payload for r in bucket.requests], padded))
+            devices = self.mesh or (self.device,)
+            if any(d.type == "cuda" for d in devices):
+                host = host.pin_memory()
+            if self.mesh is not None:
+                dev = split_batch(host, self.mesh)
+            else:
+                dev = host.to(self.device, non_blocking=True)
+        return bucket, padded, dev, dispatch
 
-    def _forward(self, dev, key) -> torch.Tensor:
-        if self.mesh is None:
-            return self.runner.forward(dev, key)
-        return self._dp(self._replicas, dev, key)
+    def _forward(self, dev, key, dispatch: int) -> torch.Tensor:
+        TRACER.dispatch = dispatch
+        try:
+            if self.mesh is None:
+                return self.runner.forward(dev, key)
+            return self._dp(self._replicas, dev, key)
+        finally:
+            TRACER.dispatch = -1
 
     def _execute(self, buckets: list[Bucket]) -> None:
         """Launch bucket i, stage bucket i+1, harvest bucket i-1: at most
@@ -477,27 +492,34 @@ class ServeEngine(_SubmitRetryMixin):
         staged = self._stage(buckets[0]) if buckets else None
         inflight = None
         for i in range(len(buckets)):
-            bucket, padded, dev = staged
+            bucket, padded, dev, dispatch = staged
             t_start = self.clock()
-            out = self._forward(dev, bucket.key)
+            if bucket.t_closed is not None:
+                TRACER.wait("engine.ready_wait", bucket.t_closed, t_start,
+                            dispatch)
+            out = self._forward(dev, bucket.key, dispatch)
             staged = self._stage(buckets[i + 1]) if i + 1 < len(buckets) else None
             if inflight is not None:
                 self._harvest(*inflight)
-            inflight = (bucket, padded, out, t_start)
+            inflight = (bucket, padded, out, t_start, dispatch)
         if inflight is not None:
             self._harvest(*inflight)
 
     def _harvest(self, bucket: Bucket, padded: int, out: torch.Tensor,
-                 t_start: float) -> None:
-        host = out.cpu().numpy()  # repro-lint: disable=RL002 — the harvest waits
-        n = len(bucket.requests)
-        t_done = self.clock()
-        for i, req in enumerate(bucket.requests):
-            self._results[req.rid] = Result(req.rid, host[i], req.t_submit,
-                                            t_done, n, padded, t_start)
-        self.stats["dispatches"] += 1
-        self.stats["requests"] += n
-        self.stats["padded_rows"] += padded - n
+                 t_start: float, dispatch: int) -> None:
+        with TRACER.span("engine.harvest", dispatch):
+            with TRACER.span("engine.harvest.wait", dispatch):
+                host = out.cpu().numpy()  # repro-lint: disable=RL002 — the harvest waits
+            n = len(bucket.requests)
+            t_done = self.clock()
+            for i, req in enumerate(bucket.requests):
+                # positional: a bucket builds a thousand of these
+                self._results[req.rid] = Result(
+                    req.rid, host[i], req.t_submit, t_done, n, padded,
+                    t_start, None, dispatch)
+            self.stats["dispatches"] += 1
+            self.stats["requests"] += n
+            self.stats["padded_rows"] += padded - n
 
 
 # ---------------------------------------------------------------------------

@@ -339,7 +339,7 @@ class ResilientServeEngine(ServeEngine):
                 self.ckpt.purge(self._bucket_tag(bucket))
             if not live:
                 return
-            bucket = Bucket(bucket.key, live)
+            bucket = Bucket(bucket.key, live, bucket.t_closed)
         try:
             self._dispatch_bucket(bucket)
         except (PowerLoss, DeviceDrop) as f:
