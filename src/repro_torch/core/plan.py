@@ -412,10 +412,12 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
                     stride=lp.stride, padding=lp.padding, a_bits=lp.a_bits,
                     w_bits=lp.w_bits, engine=lp.engine,
                     w_planes=p.get("w_planes"), reference=reference)
-        h = h + p["b"]
         if lp.index < last:
             with TRACER.span("executor.norm"):
-                h = _norm_act(h, p["g"], p["beta"], quant, lp.role, "serve")
+                h = _norm_act(h, p["g"], p["beta"], quant, lp.role, "serve",
+                              bias=p["b"], reference=reference)
+        else:
+            h = h + p["b"]
         if lp.pool:
             h = avg_pool2(h)
     return torch.mean(h, dim=(1, 2))

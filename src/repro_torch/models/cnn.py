@@ -29,8 +29,8 @@ import torch
 
 from repro_torch.core.conv_lowering import conv2d_float
 from repro_torch.core.prequant import is_fp_layer
-from repro_torch.core.quant import (QuantConfig, clip01, quantize_activation,
-                                    quantize_gradient, quantize_weight)
+from repro_torch.core.quant import (QuantConfig, quantize_gradient,
+                                    quantize_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,20 +93,22 @@ def init_cnn(generator: torch.Generator, spec: Sequence[ConvSpec],
 
 
 def _norm_act(x: torch.Tensor, g, beta, quant: QuantConfig, role: str,
-              mode: str = "serve") -> torch.Tensor:
+              mode: str = "serve", *, bias=None,
+              reference: bool = False) -> torch.Tensor:
     """Per-channel norm + bounded activation (clip to [0,1], then the
-    DoReFa activation quantizer).  Serve mode takes PER-SAMPLE
-    (spatial-only) statistics, so a request's output never depends on its
-    batchmates; train mode takes batch statistics over (B, H, W).
-    ``jnp.var`` is the population variance (correction=0)."""
-    dims = (1, 2) if mode == "serve" else (0, 1, 2)
-    mu = torch.mean(x, dim=dims, keepdim=True)
-    var = torch.var(x, dim=dims, keepdim=True, correction=0)
-    x = (x - mu) * torch.rsqrt(var + 1e-5) * g + beta
-    x = clip01(x)
-    if role == "last" or quant.engine == "fp":
-        return x
-    return quantize_activation(x, quant.a_bits)
+    DoReFa activation quantizer), of ``x + bias`` where a ``bias`` is
+    given.  Serve mode takes PER-SAMPLE (spatial-only) statistics, so a
+    request's output never depends on its batchmates, in one launch of
+    :func:`repro_torch.kernels.norm_act.norm_act` on a CUDA ``x`` (its
+    plain version with ``reference``); train mode takes batch statistics
+    over (B, H, W) in PyTorch ops.  ``jnp.var`` is the population variance
+    (correction=0)."""
+    from repro_torch.kernels.norm_act import norm_act, norm_act_plain
+
+    bits = 32 if (role == "last" or quant.engine == "fp") else quant.a_bits
+    if mode != "serve":
+        return norm_act_plain(x, g, beta, bias, bits, dims=(0, 1, 2))
+    return (norm_act_plain if reference else norm_act)(x, g, beta, bias, bits)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

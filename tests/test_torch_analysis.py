@@ -713,8 +713,9 @@ def test_the_tree_lints_clean_and_every_launcher_is_proven():
         "attn_flash_launch", "attn_flash_scratch_bytes", "attn_paged_plan",
         "attn_paged_launch", "bitgemm_packed_plan", "bitgemm_packed_launch",
         "int8_matmul_plan", "int8_matmul_launch", "conv_implicit_launch",
-        "fused_qgemm_plan", "fused_qgemm_launch", "quantize_pack_launch"])
-    assert len(sites) == 12
+        "fused_qgemm_plan", "fused_qgemm_launch", "quantize_pack_launch",
+        "norm_act_fit", "norm_act_launch"])
+    assert len(sites) == 14
 
 
 # ---------------------------------------------------------------------------

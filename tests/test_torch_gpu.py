@@ -125,7 +125,7 @@ def test_wrappers_count_launches_only_for_the_kernel(cuda_device):
     assert _lib.LAUNCHES == {"fused_qgemm": 1, "conv_implicit": 1,
                              "attn_flash": 0, "attn_paged": 0,
                              "quantize_pack": 0, "bitgemm_packed": 0,
-                             "int8_matmul": 0}
+                             "int8_matmul": 0, "norm_act": 0}
 
 
 @pytest.mark.gpu
@@ -180,6 +180,27 @@ def test_conv_launcher_refuses_a_foreign_layout(cuda_device):
     torch.cuda.synchronize()
 
 
+def _held_to_the_oracle(compiled, x, got, ref):
+    """A compiled svhn forward ``got`` against the oracle's ``ref``
+    (``reference=True``).  The conv kernels are held bit for bit: the
+    forward with the norm's plain version in the kernel's place, whose
+    statistics sum in the oracle's order, equals ``ref``.  The norm
+    kernel's statistics sum in another order, so a level may flip at a .5
+    boundary (``tests/test_torch_norm_act.py`` bounds the flips): ``got``
+    keeps the oracle's argmax and lies within chip_smoke.py's alone vs
+    batched tolerance of it, 0.1 x max|logit| (``LOGIT_TOL_FRAC``)."""
+    from repro_torch.kernels import norm_act as N
+
+    kernel = N.norm_act
+    N.norm_act = N.norm_act_plain
+    try:
+        assert torch.equal(compiled.forward(x), ref)
+    finally:
+        N.norm_act = kernel
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    assert float((got - ref).abs().max()) <= 0.1 * float(ref.abs().max())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("qname", ["w1a4", "w1a8"])
 def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
@@ -195,13 +216,13 @@ def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
             "conv_implicit": engines.count("implicit")}
     assert want == {"fused_qgemm": 5, "conv_implicit": 1}
     want.update(attn_flash=0, attn_paged=0, quantize_pack=0,
-                bitgemm_packed=0, int8_matmul=0)
+                bitgemm_packed=0, int8_matmul=0, norm_act=7)
     _lib.reset_launches()
     got = compiled.forward(x)
     assert _lib.LAUNCHES == want
     ref = compiled.forward(x, reference=True)
     assert _lib.LAUNCHES == want
-    assert torch.equal(got, ref)
+    _held_to_the_oracle(compiled, x, got, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +468,7 @@ def test_bitplane_wrappers_count_launches_only_for_the_kernel(cuda_device):
     assert _lib.LAUNCHES == {"fused_qgemm": 0, "conv_implicit": 0,
                              "attn_flash": 0, "attn_paged": 0,
                              "quantize_pack": 1, "bitgemm_packed": 1,
-                             "int8_matmul": 3}
+                             "int8_matmul": 3, "norm_act": 0}
 
 
 @pytest.mark.gpu
@@ -476,8 +497,11 @@ def test_svhn_engines_on_card_equal_default_engines(cuda_device, engine,
     per_layer = {"faithful": {"quantize_pack": 1, "bitgemm_packed": 1},
                  "int8": {"int8_matmul": 2 if qname == "w1a8" else 1},
                  "int8_planewise": {"int8_matmul": q.a_bits}}.get(engine, {})
-    assert _lib.LAUNCHES == {k: 6 * per_layer.get(k, 0) for k in _lib.LAUNCHES}
-    assert torch.equal(got, compiled.forward(x, reference=True))
+    want = {k: 6 * per_layer.get(k, 0) for k in _lib.LAUNCHES}
+    want["norm_act"] = 7
+    assert _lib.LAUNCHES == want
+    _held_to_the_oracle(compiled, x, got,
+                        compiled.forward(x, reference=True))
     assert torch.equal(got, default)
 
 
