@@ -393,6 +393,22 @@ def test_kernel_device_ops_and_refused_plans(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hwc", [(10, 10, 80), (40, 40, 40), TWO_PASS])
+def test_a_samples_output_does_not_depend_on_its_batch(cuda_device, hwc):
+    """A sample's statistics sum in an order fixed by its map's plan
+    alone, so its output is the same bit for bit alone, in a batch and at
+    another row of it: the serving engines' replicas and retries, which
+    regroup requests, rely on it."""
+    x, b, g, beta = _inputs((24, *hwc), hwc[2], cuda_device)
+    full = N.norm_act(x, g, beta, b, W1A4.a_bits)
+    alone = N.norm_act(x[5:6].contiguous(), g, beta, b, W1A4.a_bits)
+    moved = N.norm_act(x.flip(0).contiguous(), g, beta, b, W1A4.a_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(alone[0]), _bits(full[5]))
+    assert torch.equal(_bits(moved.flip(0)), _bits(full))
+
+
+@pytest.mark.gpu
 def test_svhn_forward_counts_a_resident_norm_a_hidden_layer(cuda_device):
     """The benchmark's svhn net at batch 1024: 7 norm_act launches a
     forward, every one on the resident path."""
