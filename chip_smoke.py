@@ -53,7 +53,18 @@ Phases, each of which makes the script exit nonzero when it fails:
    its launches in one forward of that net at batch 1024; held the same
    way, untimed, at the hidden-layer shapes of the full-width svhn net
    (width 64: clusters up to 5) and of AlexNet (224x224: clusters up to
-   6, and 1x1 maps) at batch 8;
+   6, and 1x1 maps) at batch 8, and held and timed at MobileNet-v1's three
+   two-pass slabs at batch 256 (outside the ``kernels`` line's sums);
+   the depthwise kernel (``dwconv``) at MobileNet-v1's 13 depthwise
+   layers at batch 256, held to its plain version with ``torch.equal``
+   and timed beside its bytes bound, the plain version and
+   ``F.conv2d(groups=C)`` in float32 (``library_ms``; the input padded
+   beforehand), one device operation a call; and one MobileNet-v1 1.0
+   forward at batch 8 (224x224, W1A4): 13 ``dwconv``, 13 ``fused_qgemm``
+   and 27 ``norm_act`` launches and nothing else, equal to the oracle bit
+   for bit under :func:`plain_norm` (through the norm kernel its gap to
+   the oracle is reported, not gated: 27 layers carry a flipped level
+   on);
 4. CNN main path: through ``build -> compile(target="cuda") ->
    serve(max_batch=8)`` at W1A4 and W1A8, full-width svhn answers a
    16-request correctness set three times over (logits equal to the
@@ -162,7 +173,7 @@ Phases, each of which makes the script exit nonzero when it fails:
    integer kernels), and the shape just outside is refused by the prover
    and by the kernel's wrapper before any launch; ``python -m
    repro_torch.analysis lint src/repro_torch chip_smoke.py`` exits 0 with
-   RL004 proving the fourteen ctypes launchers against ``csrc``;
+   RL004 proving the fifteen ctypes launchers against ``csrc``;
 5d. the dense, MoE and recurrent architectures, one ``FAMILIES`` line
    (W1A8, bf16, random weights from FAM_SEED, each model freed before the
    next): phi3-mini-3.8b, granite-moe-3b-a800m, recurrentgemma-9b and
@@ -344,6 +355,11 @@ BITPLANE_WINDOWS = ("w1a1 faithful", "w1a8 int8")
 # the norm kernel's row: the benchmark's svhn net at its bucket size
 NORM_NAME = "norm_act"
 NORM_BATCH = 1024
+# MobileNet-v1's bucket in the benchmark (the dwconv rows, the two-pass
+# norm rows) and the batch of the forward held to the oracle
+MOBILENET_BATCH = 256
+MOBILENET_FORWARD_BATCH = 8
+MOBILENET_LAUNCHES = {"dwconv": 13, "fused_qgemm": 13, "norm_act": 27}
 # ~1 ms of device time at H100 clocks: longer than the host needs to
 # enqueue one launch of a kernel or of its plain version
 SLEEP_CYCLES = 2_000_000
@@ -1201,6 +1217,142 @@ def norm_act_kernel_phase(flush: torch.Tensor) -> dict:
     for r in rows:
         r["launches_per_dispatch"] = per_dispatch
     return {NORM_NAME: rows}
+
+
+def mobilenet_kernel_phase(flush: torch.Tensor) -> dict:
+    """``dwconv`` against its plain version at MobileNet-v1's 13 depthwise
+    layers at batch 256, timed; ``norm_act`` at its three two-pass slabs
+    at batch 256, timed (its rows join the ``norm_act`` entry outside the
+    main-path sums); one MobileNet-v1 forward at batch 8 counted and held
+    to the oracle."""
+    import torch.nn.functional as F
+
+    from repro_torch import api
+    from repro_torch.core import plan as P
+    from repro_torch.core.conv_lowering import pad_split
+    from repro_torch.core.quant import W1A4
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.dwconv import dwconv, dwconv_plain
+    from repro_torch.kernels.norm_act import norm_act, norm_act_plain, plan_for
+    from repro_torch.models.cnn import init_cnn, mobilenet_v1_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    spec = mobilenet_v1_spec()
+    layers = P.cnn_serve_layers(spec, W1A4, batch=MOBILENET_BATCH,
+                                img_hw=(224, 224))
+    n = (1 << W1A4.a_bits) - 1
+    dw_rows, norm_rows = [], []
+    for lp in layers:
+        if lp.engine != "depthwise":
+            continue
+        b, c = MOBILENET_BATCH, lp.cout
+        x = torch.randint(0, n + 1, (b, lp.in_h, lp.in_w, c), generator=gen,
+                          dtype=torch.uint8, device=dev)
+        w = torch.randint(0, 2, (9, c), generator=gen, dtype=torch.uint8,
+                          device=dev)
+        kw = dict(stride=lp.stride, a_bits=W1A4.a_bits, w_bits=1)
+        kern = lambda x=x, w=w, kw=kw: dwconv(x, w, 0.0731, 0.5, **kw)
+        plain = lambda x=x, w=w, kw=kw: dwconv_plain(x, w, 0.0731, 0.5, **kw)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref),
+              f"dwconv {lp.name}: differs from its plain version")
+        (pt, pb), (pl, pr) = pad_split(lp.in_h, lp.in_w, 3, 3, lp.stride,
+                                       "SAME")
+        xf = F.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb)).to(
+            memory_format=torch.channels_last)
+        wf = torch.randn((c, 1, 3, 3), generator=gen, device=dev)
+        lib = lambda xf=xf, wf=wf, s=lp.stride, c=c: F.conv2d(
+            xf, wf, stride=s, groups=c)
+        row = dict(model="mobilenetv1", layer=lp.name, main_path=True,
+                   shape=[b, lp.in_h, lp.in_w, c], stride=lp.stride,
+                   max_abs_err=float((got - ref).abs().max()))
+        del got, ref
+        row["ms"] = time_ms(kern, 30, flush)
+        row["plain_ms"] = time_ms(plain, 3, flush)
+        row["library_ms"] = time_ms(lib, 10, flush)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            0.0, b * lp.in_h * lp.in_w * c + 9 * c
+            + 4 * b * lp.out_h * lp.out_w * c)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["device_ops_per_call"] = _lib.count_device_ops(kern)
+        check(row["device_ops_per_call"] == 1,
+              f"dwconv {lp.name}: {row['device_ops_per_call']} device "
+              f"operations a call")
+        dw_rows.append(row)
+        print("KERNEL", json.dumps(dict(name="dwconv", **row)), flush=True)
+        del x, xf, kern, plain, lib
+    slabs = sorted({(lp.out_h, lp.out_w, lp.cout) for lp in layers[:-1]
+                    if plan_for(lp.out_h, lp.out_w, lp.cout).path
+                    == "two_pass"})
+    for h, w_, c in slabs:
+        x = torch.randn((MOBILENET_BATCH, h, w_, c), generator=gen,
+                        device=dev)
+        b_, g, beta = (torch.rand(c, generator=gen, device=dev) * s + lo
+                       for s, lo in ((1.0, -0.5), (0.3, 0.1), (0.4, 0.3)))
+        kern = lambda x=x, g=g, beta=beta, b_=b_: norm_act(x, g, beta, b_,
+                                                           W1A4.a_bits)
+        plain = lambda x=x, g=g, beta=beta, b_=b_: norm_act_plain(
+            x, g, beta, b_, W1A4.a_bits)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        d = (torch.round(got * n) - torch.round(ref * n)).abs()
+        flips = float((d != 0).float().mean())
+        check(float(d.max()) <= 1 and flips <= 1e-4,
+              f"norm_act mobilenetv1 {(h, w_, c)}: levels differ from the "
+              f"plain version's by {float(d.max())} (share {flips})")
+        row = dict(model="mobilenetv1", layer=f"{h}x{w_}x{c}",
+                   shape=[MOBILENET_BATCH, h, w_, c], path="two_pass",
+                   main_path=False, level_flips_vs_plain=flips,
+                   max_abs_err=float((got - ref).abs().max()))
+        del got, ref, d
+        row["ms"] = time_ms(kern, 30, flush)
+        row["plain_ms"] = time_ms(plain, 3, flush)
+        row["bound_ms"], row["bound_by"] = bound_ms(0.0, 8.0 * x.numel()
+                                                    + 12.0 * c)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = None
+        row["device_ops_per_call"] = _lib.count_device_ops(kern)
+        check(row["device_ops_per_call"] == 2,
+              f"norm_act mobilenetv1 {(h, w_, c)}: "
+              f"{row['device_ops_per_call']} device operations a call")
+        norm_rows.append(row)
+        print("KERNEL", json.dumps(dict(name=NORM_NAME, **row)), flush=True)
+        del x, kern, plain
+    # one forward through the compiled plan, counted and held
+    compiled = api.build(spec, W1A4, params=init_cnn(gen, spec),
+                         img_hw=224).compile(
+        target="cuda", batch_hints=(MOBILENET_FORWARD_BATCH,))
+    x = torch.rand((MOBILENET_FORWARD_BATCH, 224, 224, 3), generator=gen,
+                   device=dev)
+    compiled.forward(x)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    got = compiled.forward(x).cpu().numpy()
+    launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    check(launches == MOBILENET_LAUNCHES,
+          f"mobilenetv1 forward launched {launches}, not "
+          f"{MOBILENET_LAUNCHES}")
+    ref = compiled.forward(x, reference=True).cpu().numpy()
+    with plain_norm():
+        exact = compiled.forward(x).cpu().numpy()
+    forward = dict(
+        batch=MOBILENET_FORWARD_BATCH, launches=launches,
+        engines=[lp.engine for lp in compiled.plan.layers],
+        plain_norm=_check_logits("mobilenetv1 forward, plain norm", exact,
+                                 ref, exact=True),
+        norm_kernel_gap=_max_diff(got, ref),
+        norm_kernel_gap_over_max=_max_diff(got, ref) / float(
+            np.abs(ref).max()),
+        norm_kernel_argmax_agree=float((got.argmax(-1)
+                                        == ref.argmax(-1)).mean()))
+    print("MOBILENET", json.dumps(forward), flush=True)
+    for r in dw_rows:
+        r["launches_per_forward"] = launches.get("dwconv", 0)
+    del compiled, x
+    torch.cuda.empty_cache()
+    return {"dwconv": dw_rows, "norm_rows": norm_rows, "forward": forward}
 
 
 def lm_kernel_phase(flush: torch.Tensor) -> dict:
@@ -2916,7 +3068,7 @@ def analysis_phase(card: str) -> dict:
     lint_out, _ = lint.communicate(timeout=300)
     check(lint.returncode == 0, f"repro-lint exited {lint.returncode}:\n"
                                 f"{lint_out}")
-    check(len(sites) == 14, f"RL004 proved {len(sites)} launchers, not 14")
+    check(len(sites) == 15, f"RL004 proved {len(sites)} launchers, not 15")
     clean = PROOFS.rows[:n_clean]
     total = sum(r["violations"] for r in clean)
     check(total == 0, f"{total} violations among the compiled plans")
@@ -4820,7 +4972,8 @@ def lm_profiles(params, cfg, layers, cont_engine) -> dict:
 
 
 PORT_KERNELS = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
-                "quantize_pack", "bitgemm_packed", "int8_matmul", "norm_act")
+                "quantize_pack", "bitgemm_packed", "int8_matmul", "norm_act",
+                "dwconv")
 
 
 def _kernel_label(name: str) -> str:
@@ -4909,6 +5062,10 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
                      "none (src/repro/models/cnn.py _norm_act is jnp code)",
                      "one W1A4 launch at each hidden-layer shape of the "
                      "benchmark's svhn net (width 20) at batch 1024"),
+        "dwconv": ("src/repro_torch/csrc/dwconv.cu",
+                   "none (the JAX package has no grouped convolution)",
+                   "one W1A4 launch at each of MobileNet-v1's 13 depthwise "
+                   "layers at batch 256"),
     }
     out = []
     for name, rows in summary.items():
@@ -4940,8 +5097,12 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
             entry["launches_per_dispatch"] = rows[0]["launches_per_dispatch"]
             entry["share_of_bound_by_shape"] = [r["share_of_bound"]
                                                 for r in timed]
+        if name == "dwconv":
+            entry["share_of_bound_by_shape"] = [r["share_of_bound"]
+                                                for r in timed]
         if (name in ATTN_MAX_DEVICE_OPS or name in CNN_MAX_DEVICE_OPS
-                or name in BIT_MAX_DEVICE_OPS or name == NORM_NAME):
+                or name in BIT_MAX_DEVICE_OPS or name in (NORM_NAME,
+                                                          "dwconv")):
             entry["device_ops_per_call"] = max(r["device_ops_per_call"]
                                                for r in rows
                                                if "device_ops_per_call" in r)
@@ -4956,7 +5117,7 @@ def kernels_line(summary: dict, launches: dict, fam: dict | None = None,
                 if n}
         entry["shapes"] = [
             {k: r[k] for k in ("model", "layer", "case", "main_path", "path",
-                               "shape",
+                               "shape", "stride",
                                "a_bits", "form", "ms", "plain_ms",
                                "copy_ms", "bound_ms", "bound_by",
                                "popc_floor_ms",
@@ -5017,9 +5178,13 @@ def main() -> int:
         summary.update(lm_kernel_phase(flush))
         t3 = time.perf_counter()
         summary.update(norm_act_kernel_phase(flush))
+        t4 = time.perf_counter()
+        mobilenet = mobilenet_kernel_phase(flush)
+        summary["dwconv"] = mobilenet["dwconv"]
+        summary[NORM_NAME] += mobilenet["norm_rows"]
         print(f"KERNEL PHASES cnn {t1 - t0:.1f} s, bit-plane {t2 - t1:.1f} s, "
-              f"lm {t3 - t2:.1f} s, norm {time.perf_counter() - t3:.1f} s",
-              flush=True)
+              f"lm {t3 - t2:.1f} s, norm {t4 - t3:.1f} s, mobilenet "
+              f"{time.perf_counter() - t4:.1f} s", flush=True)
         del flush
         if args.kernels_only:
             print("KERNELS-ONLY done", flush=True)
@@ -5055,6 +5220,7 @@ def main() -> int:
                                    "int8_matmul")})
         launches.update({k: done["lm"]["launches"][k]
                          for k in ("attn_flash", "attn_paged")})
+        launches["dwconv"] = mobilenet["forward"]["launches"].get("dwconv", 0)
         print(json.dumps(kernels_line(summary, launches, dict(
             archs=done["families"]["archs"] + done["modalities"]["archs"]),
             done["train"]["handoff"]["launches"])))

@@ -18,13 +18,15 @@ port's own predicates:
   falls under PV102.
 * **PV102** — int32 accumulator, rowsum and zero-point-correction
   magnitudes cannot overflow on the integer-accumulating engines
-  (``and_accum.int32_exact``; ``implicit`` on every target; ``faithful``
+  (``and_accum.int32_exact``; ``implicit`` and ``depthwise`` on every
+  target, the latter over its 9 taps; ``faithful``
   over K rounded up to whole 32-bit words; the ``int8`` engines' s8 x s8
   partial sums, ``bitgemm_mxu.int8_exact``).
 * **PV103** — every serialized engine verdict is feasible per
   ``ops.engine_feasible`` / ``ops.attn_engine_feasible``: uint8 operands,
-  ``conv_implicit``'s shared-memory layout, the attention kernels' head
-  dims.
+  ``conv_implicit``'s shared-memory layout, ``dwconv``'s own limits (a
+  depthwise layer on ``depthwise`` alone: 3x3, stride 1 or 2, SAME,
+  channels in whole 4-byte vectors), the attention kernels' head dims.
 * **PV104** — dispatch-table completeness/consistency: every dense row has
   its ``dense_plan_key`` entry (and agrees with it), every attention row
   its ``attn_table`` verdict, no orphan table entries.
@@ -69,7 +71,7 @@ from repro_torch.core.plan import PlanError
 # port's kernels but f32dot
 _INT_ACC_ENGINES = frozenset(
     {"int8", "int8_planewise", "fused", "faithful", "planes", "packed",
-     "implicit"})
+     "implicit", "depthwise"})
 
 # The attention path quantizes q/k at 8 bits regardless of QuantConfig
 # (kernels/attn_flash.attn_quant_scale); the prover mirrors that constant.
@@ -185,7 +187,7 @@ def _check_feasibility(lp, batch: int, engine: str, bounds: str, where: str,
     m = batch
     if lp.op == "conv":
         conv = ops.ConvShape(lp.in_h, lp.in_w, lp.kh, lp.kw, lp.stride,
-                             lp.padding, batch=batch)
+                             lp.padding, batch=batch, groups=lp.groups)
         m = conv.m
     ok, reason = ops.engine_feasible(engine, m, lp.k, lp.cout, lp.a_bits,
                                      lp.w_bits, bounds, conv)

@@ -11,7 +11,9 @@ Two kinds of target:
   for deep-K spatial convs whose block fits shared memory, ``fused``
   otherwise — with the TPU's 8 MiB VMEM residency bound replaced by the
   shared-memory bound of the port's implicit kernel, computed by the same
-  function the kernel wrapper uses.  Every other dense engine of the
+  function the kernel wrapper uses.  A depthwise conv (``ConvShape.groups
+  > 1``) routes to ``depthwise``, the one engine that computes it, within
+  ``kernels.dwconv.bounds``.  Every other dense engine of the
   reference (``faithful``, ``planes``, ``packed``, ``int8``,
   ``int8_planewise``, ``f32dot``) is feasible under its exactness bound
   when a ``QuantConfig`` names it (``ops.engine_feasible``), but the
@@ -136,6 +138,8 @@ class ComputeTarget:
         return need, SMEM_LIMIT
 
     def select_engine(self, m, k, n, a_bits, w_bits, conv=None) -> str:
+        if conv is not None and conv.groups > 1:
+            return "depthwise"      # the one engine a depthwise conv has
         if _implicit_eligible(conv) and k >= IMPLICIT_KDIM_MIN:
             need, budget = self.implicit_smem(conv, k, n)
             if need <= budget:

@@ -98,6 +98,9 @@ class LayerPlan:
     cost: tuple = ()
     # attention realization of an "attn" row (LM plans); "" for convs
     attn_engine: str = ""
+    # a depthwise conv's cout (its weight is (kh*kw, cout)), else 1; kept
+    # out of the metadata at 1, so a dense plan has the reference's keys
+    groups: int = 1
 
     def engine_at(self, batch: int) -> str:
         """Exact hint, else the largest hint not above ``batch``, else the
@@ -239,6 +242,9 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
     layers = []
     in_h, in_w = img_hw
     for i, s in enumerate(spec):
+        if s.groups != 1 and not (s.groups == s.cout and s.cin == 1):
+            raise PlanError(f"layer {i} ({s}): groups must be 1 or, for a "
+                            f"depthwise conv, cout with cin 1")
         pad = "VALID" if (s.fc or s.k == 1) else "SAME"
         if s.fc and s.k > 1 and in_h != s.k:
             in_h = in_w = s.k       # the forward resizes to (k, k)
@@ -246,18 +252,27 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
         kdim = s.k * s.k * s.cin
         name = f"{'fc' if s.fc else 'conv'}{i}"
         fp = is_fp_layer(s, quant)
+        if fp and s.groups != 1:
+            raise PlanError(f"layer {i} ({name}): a depthwise layer is "
+                            f"served quantized only (the float convs take "
+                            f"no groups)")
         if fp:
             engines, source = tuple((b, "fp") for b in batches), "fp"
         else:
+            # a dense engine cannot run a depthwise layer's weights at all,
+            # so its explicit engine is checked whether or not strict
+            kind = (f"depthwise {s.k}x{s.k} channels={s.cout} "
+                    f"stride={s.stride}" if s.groups != 1 else
+                    f"{s.k}x{s.k} cin={s.cin} cout={s.cout}")
             resolved = []
             for b in batches:
                 conv = ops.ConvShape(in_h, in_w, s.k, s.k, s.stride, pad,
-                                     batch=b)
+                                     batch=b, groups=s.groups)
                 eng, source = _resolve_engine(
                     quant, b * out_h * out_w, kdim, s.cout, target, conv,
-                    autotune=autotune, device=device, strict=strict,
-                    layer_desc=f"layer {i} ({name}, {s.k}x{s.k} "
-                               f"cin={s.cin} cout={s.cout} batch={b})")
+                    autotune=autotune, device=device,
+                    strict=strict or s.groups != 1,
+                    layer_desc=f"layer {i} ({name}, {kind} batch={b})")
                 resolved.append((b, eng))
             engines = tuple(resolved)
         layers.append(LayerPlan(
@@ -267,7 +282,7 @@ def _plan_cnn_layers(spec, quant: QuantConfig, *, batches, img_hw, target,
             out_h=out_h, out_w=out_w, k=kdim,
             a_bits=quant.a_bits, w_bits=quant.w_bits,
             engine=engines[0][1], engine_source=source, engines=engines,
-            pool=s.pool, fc=s.fc))
+            pool=s.pool, fc=s.fc, groups=s.groups))
         in_h, in_w = out_h, out_w
         if s.pool:
             in_h, in_w = max(in_h // 2, 1), max(in_w // 2, 1)
@@ -389,7 +404,8 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
     (prequantized at the call); a faithful layer without ``w_planes``
     packs them at the call.  ``reference=True`` runs the kernels' plain
     versions (the oracle).  Each layer's convolution is an
-    ``executor.conv`` span, each norm an ``executor.norm`` span."""
+    ``executor.conv`` span (``executor.dwconv`` on the depthwise engine),
+    each norm an ``executor.norm`` span."""
     from repro_torch.core.conv_lowering import conv2d_float, quant_conv2d_pre
     from repro_torch.models.cnn import _norm_act, avg_pool2, resize_linear
 
@@ -401,7 +417,8 @@ def execute_cnn_layers(layers, params, x: torch.Tensor, quant: QuantConfig,
     for lp, p in zip(layers, params):
         if lp.fc and lp.kh > 1 and h.shape[1] != lp.kh:
             h = resize_linear(h, lp.kh)
-        with TRACER.span("executor.conv"):
+        with TRACER.span("executor.dwconv" if lp.engine == "depthwise"
+                         else "executor.conv"):
             if lp.fp:
                 h = conv2d_float(h, p["w"], stride=lp.stride,
                                  padding=lp.padding)
@@ -624,6 +641,8 @@ _DERIVED = ("w_planes",)
 
 def _layer_to_json(lp: LayerPlan) -> dict:
     d = dataclasses.asdict(lp)
+    if lp.groups == 1:
+        del d["groups"]
     d["engines"] = [list(e) for e in lp.engines]
     d["cost"] = list(lp.cost)
     return d

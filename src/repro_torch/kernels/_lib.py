@@ -38,7 +38,7 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
                                 REPO_ROOT / "build" / "kernels"))
 SOURCES = ("fused_qgemm", "conv_implicit", "attn_flash", "attn_paged",
-           "quantpack", "bitgemm", "int8_matmul", "norm_act")
+           "quantpack", "bitgemm", "int8_matmul", "norm_act", "dwconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {"fused_qgemm": "fused_qgemm", "conv_implicit": "conv_implicit",
            "attn_flash": "attn_flash", "attn_paged": "attn_paged",
            "quantize_pack": "quantpack", "bitgemm_packed": "bitgemm",
-           "int8_matmul": "int8_matmul", "norm_act": "norm_act"}
+           "int8_matmul": "int8_matmul", "norm_act": "norm_act",
+           "dwconv": "dwconv"}
 LAUNCHES = {name: 0 for name in KERNELS}
 # devices whose tensors a wrapper runs its plain version on
 PLAIN_DEVICES = ("cpu", "meta")

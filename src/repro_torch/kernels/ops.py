@@ -7,6 +7,9 @@ same int32 level-GEMM accumulator and then run the one shared epilogue
 
 * ``fused`` — the fused level GEMM, :mod:`.fused_qgemm`;
 * ``implicit`` — the implicit-GEMM conv, :mod:`.conv_implicit`;
+* ``depthwise`` — a depthwise 3x3 conv (``ConvShape.groups > 1``), each
+  channel against its own nine weights, :mod:`.dwconv`: the only engine
+  that computes one, and one that computes nothing else;
 * ``faithful`` — the paper's Eq. (1): the activation levels packed into
   bit planes on the card (:mod:`.quantpack`, levels in), the weight planes
   packed once at plan compile, AND + popcount in :mod:`.bitgemm`;
@@ -46,11 +49,12 @@ from repro_torch.core.conv_lowering import _out_hw, im2col_sliced
 from .bitgemm import bitgemm_packed, bitgemm_packed_plain
 from .bitgemm_mxu import int8_exact, int8_matmul, int8_matmul_plain
 from .conv_implicit import conv_implicit, conv_implicit_plain
+from .dwconv import bounds as dwconv_bounds, dwconv, dwconv_plain
 from .fused_qgemm import fused_qgemm, fused_qgemm_plain
 from .quantpack import quantize_pack as _quantize_pack, quantize_pack_plain
 
 ENGINES = ("fused", "implicit", "faithful", "planes", "packed", "int8",
-           "int8_planewise", "f32dot")
+           "int8_planewise", "f32dot", "depthwise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +67,8 @@ class ConvShape:
     stride: int
     padding: str
     batch: int = 1
+    # a depthwise conv's channel count (each its own group), else 1
+    groups: int = 1
 
     @property
     def out_hw(self) -> tuple[int, int]:
@@ -186,6 +192,15 @@ def engine_feasible(engine: str, m: int, k: int, n: int, a_bits: int,
     if not int32_exact(k, a_bits, w_bits):
         return False, (f"int32 accumulator may overflow at K={k}, "
                        f"a_bits={a_bits}, w_bits={w_bits}")
+    depthwise = conv is not None and conv.groups > 1
+    if engine == "depthwise" or depthwise:
+        if not depthwise:
+            return False, ("depthwise computes only depthwise convs "
+                           "(groups == cout, cin == 1)")
+        if engine != "depthwise":
+            return False, (f"{engine} computes a dense conv; only "
+                           f"depthwise computes a depthwise one")
+        return dwconv_bounds(conv.kh, conv.kw, conv.stride, conv.padding, n)
     if engine in ("int8", "int8_planewise") and not int8_exact(k):
         return False, (f"an s8 x s8 partial sum may overflow int32 at K={k}")
     if engine == "f32dot" and not f32dot_exact(k, a_bits, w_bits):
@@ -437,8 +452,9 @@ def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
                      reference: bool = False) -> torch.Tensor:
     """Conv on pre-quantized operands: (B,H,W,Cin) uint8 levels, (kh*kw*Cin,
     Cout) uint8 weight levels -> (B,OH,OW,Cout) float32.  ``implicit`` never
-    materializes patches; every other engine lowers through
-    ``im2col_sliced`` to :func:`quant_dense_serve`."""
+    materializes patches; ``depthwise`` takes a depthwise conv's (kh*kw,
+    C) weights; every other engine lowers through ``im2col_sliced`` to
+    :func:`quant_dense_serve`."""
     b, h, w, cin = x_lv.shape
     cout = w_lv.shape[1]
     oh, ow = _out_hw(h, w, kh, kw, stride, padding)
@@ -451,6 +467,10 @@ def quant_conv_serve(x_lv: torch.Tensor, w_lv: torch.Tensor, s_w, z_w, *,
         fn = conv_implicit_plain if reference else conv_implicit
         return fn(x_lv, w_lv, s_w, z_w, kh=kh, kw=kw, stride=stride,
                   padding=padding, a_bits=a_bits, w_bits=w_bits)
+    if engine == "depthwise":
+        fn = dwconv_plain if reference else dwconv
+        return fn(x_lv, w_lv, s_w, z_w, stride=stride, a_bits=a_bits,
+                  w_bits=w_bits)
     patches = im2col_sliced(x_lv, kh, kw, stride, padding)
     out = quant_dense_serve(patches.reshape(-1, kh * kw * cin), w_lv, s_w,
                             z_w, a_bits=a_bits, w_bits=w_bits, engine=engine,

@@ -4,6 +4,10 @@
   convolutions), for 40x40 SVHN digits; first and last layers stay full
   precision.
 * ``alexnet`` — binary-weight AlexNet for the ImageNet rows.
+* ``mobilenet_v1`` — MobileNet-v1 (Howard et al., arXiv:1704.04861,
+  Table 1, as TF-slim's ``mobilenet_v1.py`` builds it): 13
+  depthwise-separable blocks, each a 3x3 depthwise conv (``groups ==
+  cout``, served by the ``depthwise`` engine) and a 1x1 pointwise conv.
 
 This module holds the specs, the seeded initializer, the per-layer
 pieces the plan executor applies between convolutions, the forward and
@@ -42,6 +46,9 @@ class ConvSpec:
     pool: bool = False   # 2x2 average pool after this layer
     role: str = "mid"    # first | mid | last
     fc: bool = False     # fully-connected: VALID conv reducing to 1x1
+    # 1, or cout for a depthwise conv; ``cin`` is the input channels a
+    # group (the HWIO weight's I axis), so a depthwise layer has cin 1
+    groups: int = 1
 
 
 def svhn_cnn_spec(channels: int = 64) -> list[ConvSpec]:
@@ -71,6 +78,34 @@ def alexnet_spec() -> list[ConvSpec]:
         ConvSpec(4096, 4096, 1, fc=True),
         ConvSpec(4096, 1000, 1, fc=True, role="last"),
     ]
+
+
+# TF-slim's _CONV_DEFS after the stem: (pointwise cout, depthwise stride)
+MOBILENET_V1_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
+                       (512, 2), (512, 1), (512, 1), (512, 1), (512, 1),
+                       (512, 1), (1024, 2), (1024, 1))
+
+
+def mobilenet_v1_spec(width: float = 1.0,
+                      classes: int = 1000) -> list[ConvSpec]:
+    """MobileNet-v1 at width multiplier ``width`` (the paper's alpha,
+    TF-slim's ``depth_multiplier``: ``max(int(d * width), 8)`` channels):
+    the float 3x3 stride-2 stem, 13 (depthwise 3x3, pointwise 1x1) pairs,
+    and the float classifier as a 1x1 conv over the last 7x7 map.  The
+    forward's closing mean makes that the average pool and the fully
+    connected layer in the other order (equal up to float rounding; 49x
+    the classifier's multiply-accumulates).  28 layers."""
+    def d(c: int) -> int:
+        return max(int(c * width), 8)
+
+    spec = [ConvSpec(3, d(32), 3, stride=2, role="first")]
+    cin = d(32)
+    for cout, stride in MOBILENET_V1_BLOCKS:
+        spec += [ConvSpec(1, cin, 3, stride=stride, groups=cin),
+                 ConvSpec(cin, d(cout), 1)]
+        cin = d(cout)
+    spec.append(ConvSpec(cin, classes, 1, role="last"))
+    return spec
 
 
 def init_cnn(generator: torch.Generator, spec: Sequence[ConvSpec],
@@ -192,7 +227,11 @@ def conv_bias(p, s: ConvSpec, h: torch.Tensor, quant: QuantConfig,
               g_gen: torch.Generator | None = None) -> torch.Tensor:
     """A training layer up to its norm: the FC resize, the conv (fake-quant
     weights unless an fp layer), the gradient quantizer with ``g_gen``,
-    the bias."""
+    the bias.  A depthwise layer is refused, naming it: training has no
+    grouped convolution (a depthwise layer is served only)."""
+    if s.groups != 1:
+        raise ValueError(f"{s}: the training forward has no grouped "
+                         f"convolution; a depthwise layer is served only")
     pad = "VALID" if (s.fc or s.k == 1) else "SAME"
     if s.fc and s.k > 1 and h.shape[1] != s.k:
         h = resize_linear(h, s.k)

@@ -115,6 +115,14 @@ def reference_golden(lm_raw, tmp_path_factory):
         for name, p in plans.items()}
 
 
+def _reference_row(lp):
+    """A port conv row as the reference's ``LayerPlan`` (which has no
+    ``groups``: the port's dense rows carry 1)."""
+    d = dataclasses.asdict(lp)
+    assert d.pop("groups") == 1
+    return jplan.LayerPlan(**d)
+
+
 def _conv_row(k, engine, a_bits=8, w_bits=8):
     """A synthetic quantized 1x1 conv row with consistent GEMM geometry
     (the reference test's)."""
@@ -339,8 +347,7 @@ def test_prover_subsumes_f32dot_guard(svhn_plan):
         assert ("PV101" in _rules(verify_plan(plan))) == (k == 259)
         jp = dataclasses.replace(jplan.compile_model(
             None, J_SVHN, jquant.W1A4, backend="cpu", img_hw=40,
-            verify=False), layers=(jplan.LayerPlan(**dataclasses.asdict(
-                _conv_row(k, "f32dot"))),))
+            verify=False), layers=(_reference_row(_conv_row(k, "f32dot")),))
         assert ("PV101" in _rules(jprover.verify_plan(jp))) == (k == 259)
     a = torch.ones((1, 259), dtype=torch.int32)
     w = torch.ones((259, 4), dtype=torch.int32)
@@ -371,8 +378,8 @@ def test_implicit_bound_is_int32_on_the_port_pv102(svhn_plan):
     jbase = jplan.compile_model(None, J_SVHN, jquant.W1A4, backend="cpu",
                                 img_hw=40, verify=False)
     for k in (74565, 74566):
-        jp = dataclasses.replace(jbase, layers=(jplan.LayerPlan(
-            **dataclasses.asdict(_conv_row(k, "implicit"))),))
+        jp = dataclasses.replace(jbase, layers=(
+            _reference_row(_conv_row(k, "implicit")),))
         assert ("PV101" in _rules(jprover.verify_plan(jp))) == (k == 74566)
     assert and_accum.int32_exact(33025, 8, 8)
     assert not and_accum.int32_exact(33026, 8, 8)
@@ -714,8 +721,8 @@ def test_the_tree_lints_clean_and_every_launcher_is_proven():
         "attn_paged_launch", "bitgemm_packed_plan", "bitgemm_packed_launch",
         "int8_matmul_plan", "int8_matmul_launch", "conv_implicit_launch",
         "fused_qgemm_plan", "fused_qgemm_launch", "quantize_pack_launch",
-        "norm_act_fit", "norm_act_launch"])
-    assert len(sites) == 14
+        "norm_act_fit", "norm_act_launch", "dwconv_launch"])
+    assert len(sites) == 15
 
 
 # ---------------------------------------------------------------------------

@@ -207,6 +207,49 @@ def test_serve_engine_pads_ragged_buckets_with_row_zero():
     np.testing.assert_array_equal(x[3], x[0])
 
 
+def test_collate_writes_into_a_given_buffer():
+    rs = np.random.RandomState(5)
+    images = [rs.uniform(0, 1, (6, 6, 3)) for _ in range(3)]    # float64
+    out = np.full((4, 6, 6, 3), np.nan, np.float32)
+    x = _collate(images, 4, np.float32, out=out)
+    assert x is out
+    np.testing.assert_array_equal(x, _collate(images, 4, np.float32))
+    np.testing.assert_array_equal(x[3], x[0])
+
+
+class _CountingPool:
+    """A thread pool that counts what it is given."""
+
+    def __init__(self, workers):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.pool, self.calls = ThreadPoolExecutor(workers), 0
+
+    def submit(self, *args, **kwargs):
+        self.calls += 1
+        return self.pool.submit(*args, **kwargs)
+
+
+@pytest.mark.parametrize("n,pad_to,chunk_bytes,parts", [
+    (7, 8, 1 << 10, 4),        # ragged: 4 parts of 2, 2, 2 and 1 rows
+    (3, 4, 1 << 9, 3),         # fewer rows than threads
+    (7, 8, 1 << 20, 0),        # under two chunks: one stack, no thread
+])
+def test_collate_in_parts_on_threads_equals_one_stack(monkeypatch, n,
+                                                       pad_to, chunk_bytes,
+                                                       parts):
+    from repro_torch.launch import engine
+
+    monkeypatch.setattr(engine, "COLLATE_CHUNK_BYTES", chunk_bytes)
+    rs = np.random.RandomState(7)
+    images = [rs.uniform(0, 1, (8, 8, 3)) for _ in range(n)]   # float64
+    workers = _CountingPool(engine.COLLATE_THREADS)
+    out = np.full((pad_to, 8, 8, 3), np.nan, np.float32)
+    x = _collate(images, pad_to, np.float32, out=out, workers=workers)
+    assert x is out and workers.calls == parts
+    np.testing.assert_array_equal(x, _collate(images, pad_to, np.float32))
+
+
 def test_serve_engine_queue_and_deadline():
     compiled = _svhn_compiled()
     clock = [0.0]

@@ -125,7 +125,7 @@ def test_wrappers_count_launches_only_for_the_kernel(cuda_device):
     assert _lib.LAUNCHES == {"fused_qgemm": 1, "conv_implicit": 1,
                              "attn_flash": 0, "attn_paged": 0,
                              "quantize_pack": 0, "bitgemm_packed": 0,
-                             "int8_matmul": 0, "norm_act": 0}
+                             "int8_matmul": 0, "norm_act": 0, "dwconv": 0}
 
 
 @pytest.mark.gpu
@@ -216,13 +216,70 @@ def test_svhn_plan_on_card_equals_its_plain_versions(cuda_device, qname):
             "conv_implicit": engines.count("implicit")}
     assert want == {"fused_qgemm": 5, "conv_implicit": 1}
     want.update(attn_flash=0, attn_paged=0, quantize_pack=0,
-                bitgemm_packed=0, int8_matmul=0, norm_act=7)
+                bitgemm_packed=0, int8_matmul=0, norm_act=7, dwconv=0)
     _lib.reset_launches()
     got = compiled.forward(x)
     assert _lib.LAUNCHES == want
     ref = compiled.forward(x, reference=True)
     assert _lib.LAUNCHES == want
     _held_to_the_oracle(compiled, x, got, ref)
+
+
+@pytest.mark.gpu
+def test_cnn_runner_stages_buckets_in_a_ring_of_pinned_buffers(cuda_device):
+    """On the card a bucket is collated into one of three pinned buffers
+    in turn, so the engine's ``pin_memory`` copies nothing, and buckets
+    served through the ring (it wraps) equal the same batches' forwards."""
+    from repro_torch.launch.engine import CNNRunner, ServeEngine
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    compiled = api.build(svhn_cnn_spec(16), PAPER_CONFIGS["w1a4"],
+                         params=init_cnn(gen, svhn_cnn_spec(16))).compile(
+        target="cuda", batch_hints=(4,))
+    runner = CNNRunner(compiled.plan)
+    rs = np.random.RandomState(6)
+    imgs = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+            for _ in range(20)]
+    ptrs = []
+    for i in range(4):
+        x = torch.from_numpy(runner.collate(imgs[i:i + 3], 4))
+        assert x.is_pinned() and x.pin_memory().data_ptr() == x.data_ptr()
+        np.testing.assert_array_equal(x.numpy()[3], imgs[i])
+        ptrs.append(x.data_ptr())
+    assert len(set(ptrs[:3])) == 3 and ptrs[3] == ptrs[0]
+    res = ServeEngine(runner, max_batch=4).serve(imgs)
+    got = np.stack([r.value for r in res])
+    want = np.concatenate([compiled.forward(torch.from_numpy(
+        np.stack(imgs[i:i + 4])).to(cuda_device)).cpu().numpy()
+        for i in range(0, 20, 4)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cnn_runner_collates_a_large_bucket_on_its_threads(cuda_device,
+                                                           monkeypatch):
+    """A bucket of two or more chunks is copied into the pinned ring by
+    the ring's threads, each part in place: the buffer equals one
+    ``np.stack`` of the rows, padding included."""
+    from repro_torch.launch import engine
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    compiled = api.build(svhn_cnn_spec(16), PAPER_CONFIGS["w1a4"],
+                         params=init_cnn(gen, svhn_cnn_spec(16))).compile(
+        target="cuda", batch_hints=(8,))
+    runner = engine.CNNRunner(compiled.plan)
+    monkeypatch.setattr(engine, "COLLATE_CHUNK_BYTES", 1 << 12)
+    rs = np.random.RandomState(8)
+    imgs = [rs.uniform(0, 1, (40, 40, 3)).astype(np.float32)
+            for _ in range(7)]
+    submitted = []
+    runner.collate(imgs[:1], 1)          # makes the ring
+    submit = runner._staging.workers.submit
+    monkeypatch.setattr(runner._staging.workers, "submit",
+                        lambda *a, **k: submitted.append(1) or submit(*a, **k))
+    x = runner.collate(imgs, 8)
+    assert torch.from_numpy(x).is_pinned() and len(submitted) == 4
+    np.testing.assert_array_equal(x, np.stack(imgs + imgs[:1]))
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +525,7 @@ def test_bitplane_wrappers_count_launches_only_for_the_kernel(cuda_device):
     assert _lib.LAUNCHES == {"fused_qgemm": 0, "conv_implicit": 0,
                              "attn_flash": 0, "attn_paged": 0,
                              "quantize_pack": 1, "bitgemm_packed": 1,
-                             "int8_matmul": 3, "norm_act": 0}
+                             "int8_matmul": 3, "norm_act": 0, "dwconv": 0}
 
 
 @pytest.mark.gpu

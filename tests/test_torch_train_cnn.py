@@ -403,5 +403,7 @@ def test_cnn_forward_serve_mode_names_the_plan():
 
 
 def test_dataclass_fields_unchanged():
+    """The reference's fields in its order, then the port's ``groups``
+    (1 on every spec the reference has; a depthwise layer's cout)."""
     assert [f.name for f in dataclasses.fields(cnn.ConvSpec)] == [
-        f.name for f in dataclasses.fields(jcnn.ConvSpec)]
+        f.name for f in dataclasses.fields(jcnn.ConvSpec)] + ["groups"]
